@@ -8,9 +8,12 @@ Phases (any failure exits non-zero before the last line):
      nvcc for sm_90a and print ptxas' registers / shared memory / spills;
   2. hold every kernel against its plain PyTorch version on the card at
      the JAX package's test shapes, serve's shape, calibration's shape and
-     a large shape: wire fields (payload, scale, zp, dequantized values)
-     bit-equal, probe fields (feat, sims, sep) within TOL, ``best`` equal
-     except at near-ties;
+     a large shape, with float32, bfloat16 and float16 activations (and
+     dequantized values of the same type): wire fields (payload, scale,
+     zp, dequantized values) bit-equal, probe fields (feat, sims, sep)
+     within TOL, ``best`` equal except at near-ties; the fused boundary
+     kernel's outputs bit-equal across two calls and after 50 replays of
+     a captured call (its arrival counters go back to 0);
   3. time each kernel and its plain version (CUDA graphs of back-to-back
      launches, CUDA events, median) beside the bytes/operations bound;
   4. serve 24 requests on full-width gemma2-2b (random weights from a
@@ -52,9 +55,16 @@ CHECK_SHAPES = [  # (B, S, D, L): tests/test_boundary.py, serve, calib, large
     (2, 64, 32, 5), (3, 100, 33, 4), (1, 1, 16, 2),
     (1, 8, 2304, 16), (300, 8, 2304, 16), (8, 4096, 2304, 16)]
 RAGGED_M = [(257, 2304), (1000, 33), (2399, 2304)]  # K2/K3 only
+DTYPES = ("float32", "bfloat16", "float16")  # activations, dequant output
 SERVE_SHAPE = (1, 8, 2304, 16)
 LARGE_SHAPE = (8, 4096, 2304, 16)
-CU_SOURCE = "src/repro_torch/kernels/csrc/coach_kernels.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCES = {  # where each kernel's device code is
+    "fused_boundary": f"{CSRC}/row_pass.cuh",
+    "uaq_dequantize": f"{CSRC}/coach_kernels.cu",
+    "uaq_quantize": f"{CSRC}/row_pass.cuh",
+    "semantic_probe": f"{CSRC}/row_pass.cuh",
+}
 KERNEL_NAME = re.compile(r"[A-Za-z_]\w*_kernel")  # in a demangled name
 REPLACES = {
     "fused_boundary": "src/repro/kernels/boundary.py:119",
@@ -78,61 +88,109 @@ def max_err(a, b) -> float:
 
 # ------------------------------------------------------------ phase 2
 def check_kernels(torch, K):
-    """Every kernel against its plain version; returns max abs error per
-    kernel (0 for the bit-equal wire fields)."""
+    """Every kernel against its plain version, in every activation dtype;
+    returns max abs error per kernel (0 for the bit-equal wire fields)."""
     ref, B_, U, S_ = K["ref"], K["boundary"], K["uaq"], K["semantic_cache"]
     errs = {k: 0.0 for k in REPLACES}
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def near(name, kernel, g, w, where):
+        assert close(g, w, **TOL), \
+            f"{kernel} {name} err {max_err(g, w)} at {where}"
+        errs[kernel] = max(errs[kernel], max_err(g, w))
+
     for (B, S, D, L) in CHECK_SHAPES:
-        x = torch.randn((B, S, D), generator=gen, device="cuda") * 2.0 + 0.3
+        x32 = torch.randn((B, S, D), generator=gen, device="cuda") * 2.0 + 0.3
         c = torch.randn((L, D), generator=gen, device="cuda")
-        for bits in (4, 8):
-            got = B_.fused_boundary(x, c, bits)
-            want = ref.fused_boundary_ref(x, c, bits)
-            for name, g, w in zip(("payload", "scale", "zp"), got, want):
-                assert torch.equal(g, w), \
-                    f"fused_boundary {name} differs at {(B, S, D, L)} {bits}b"
-            for name, g, w in zip(("feat", "sep", "sims"),
-                                  (got[3], got[4], got[6]),
-                                  (want[3], want[4], want[6])):
-                assert close(g, w, **TOL), \
-                    f"fused_boundary {name} err {max_err(g, w)} at " \
-                    f"{(B, S, D, L)} {bits}b"
-                errs["fused_boundary"] = max(errs["fused_boundary"],
-                                             max_err(g, w))
-            check_best(torch, got[5], want[5], want[6], "fused_boundary")
-            # K3 + K2 on the same rows
-            x2 = x.reshape(B * S, D)
-            q = U.uaq_quantize(x2, bits)
-            for name, g, w in zip(("payload", "scale", "zp"), q,
-                                  ref.uaq_quantize_ref(x2, bits)):
-                assert torch.equal(g, w), \
-                    f"uaq_quantize {name} differs at {(B * S, D)} {bits}b"
-                assert torch.equal(g, got[("payload", "scale", "zp").index(
-                    name)].reshape(g.shape)), "K1 and K3 wire fields differ"
-            d = U.uaq_dequantize(*q, bits, n=D)
-            dw = ref.uaq_dequantize_ref(*q, bits, n=D)
-            assert torch.equal(d, dw), f"uaq_dequantize differs at {(B * S, D)}"
-        sep, best, sims = S_.semantic_probe(x, c)
-        wsep, wbest, wsims = ref.semantic_probe_ref(x, c)
-        for name, g, w in (("sep", sep, wsep), ("sims", sims, wsims)):
-            assert close(g, w, **TOL), \
-                f"semantic_probe {name} err {max_err(g, w)} at {(B, S, D, L)}"
-            errs["semantic_probe"] = max(errs["semantic_probe"], max_err(g, w))
-        check_best(torch, best, wbest, wsims, "semantic_probe")
-        log(f"  ok {(B, S, D, L)}")
+        for dt in DTYPES:
+            dtype = getattr(torch, dt)
+            x = x32.to(dtype)
+            where = f"{(B, S, D, L)} {dt}"
+            for bits in (4, 8):
+                got = B_.fused_boundary(x, c, bits)
+                want = ref.fused_boundary_ref(x, c, bits)
+                for name, g, w in zip(("payload", "scale", "zp"), got, want):
+                    assert torch.equal(g, w), \
+                        f"fused_boundary {name} differs at {where} {bits}b"
+                for i, name in ((3, "feat"), (4, "sep"), (6, "sims")):
+                    near(name, "fused_boundary", got[i], want[i], where)
+                check_best(torch, got[5], want[5], want[6], "fused_boundary")
+                # K3 + K2 on the same rows
+                x2 = x.reshape(B * S, D)
+                q = U.uaq_quantize(x2, bits)
+                for name, g, w in zip(("payload", "scale", "zp"), q,
+                                      ref.uaq_quantize_ref(x2, bits)):
+                    assert torch.equal(g, w), \
+                        f"uaq_quantize {name} differs at {where} {bits}b"
+                    assert torch.equal(g, got[("payload", "scale", "zp")
+                                              .index(name)].reshape(g.shape)), \
+                        "K1 and K3 wire fields differ"
+                d = U.uaq_dequantize(*q, bits, dtype, n=D)
+                assert d.dtype == dtype and torch.equal(
+                    d, ref.uaq_dequantize_ref(*q, bits, dtype, n=D)), \
+                    f"uaq_dequantize differs at {where} {bits}b"
+            sep, best, sims = S_.semantic_probe(x, c)
+            wsep, wbest, wsims = ref.semantic_probe_ref(x, c)
+            near("sep", "semantic_probe", sep, wsep, where)
+            near("sims", "semantic_probe", sims, wsims, where)
+            check_best(torch, best, wbest, wsims, "semantic_probe")
+        log(f"  ok {(B, S, D, L)} in {', '.join(DTYPES)}")
     for (M, N) in RAGGED_M:
-        x2 = torch.randn((M, N), generator=gen, device="cuda")
-        for bits in (4, 8):
-            q = U.uaq_quantize(x2, bits)
-            for g, w in zip(q, ref.uaq_quantize_ref(x2, bits)):
-                assert torch.equal(g, w), f"uaq_quantize differs at {(M, N)}"
-            assert torch.equal(U.uaq_dequantize(*q, bits, n=N),
-                               ref.uaq_dequantize_ref(*q, bits, n=N)), \
-                f"uaq_dequantize differs at {(M, N)}"
-        log(f"  ok ragged M {(M, N)}")
+        x32 = torch.randn((M, N), generator=gen, device="cuda")
+        for dt in DTYPES:
+            dtype = getattr(torch, dt)
+            x2 = x32.to(dtype)
+            for bits in (4, 8):
+                q = U.uaq_quantize(x2, bits)
+                for g, w in zip(q, ref.uaq_quantize_ref(x2, bits)):
+                    assert torch.equal(g, w), \
+                        f"uaq_quantize differs at {(M, N)} {dt}"
+                assert torch.equal(
+                    U.uaq_dequantize(*q, bits, dtype, n=N),
+                    ref.uaq_dequantize_ref(*q, bits, dtype, n=N)), \
+                    f"uaq_dequantize differs at {(M, N)} {dt}"
+        log(f"  ok ragged M {(M, N)} in {', '.join(DTYPES)}")
+    for shape in (SERVE_SHAPE, LARGE_SHAPE):
+        check_repeatable(torch, K, shape)
     torch.cuda.synchronize()
     return errs
+
+
+def check_repeatable(torch, K, shape):
+    """Two calls of the fused boundary kernel give bit-equal outputs, and
+    so do 50 replays of a captured call, which would go wrong if the
+    arrival counters did not go back to 0; the replayed outputs also match
+    the plain version."""
+    B, S, D, L = shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, S, D), generator=gen, device="cuda")
+    c = torch.randn((L, D), generator=gen, device="cuda")
+    fb = K["boundary"].fused_boundary
+    first, second = fb(x, c, 8), fb(x, c, 8)
+    for g, w in zip(first, second):
+        assert torch.equal(g, w), f"fused_boundary not repeatable at {shape}"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fb(x, c, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fb(x, c, 8)
+    for _ in range(50):
+        graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(captured, first):
+        assert torch.equal(g, w), \
+            f"fused_boundary differs after graph replays at {shape}"
+    want = K["ref"].fused_boundary_ref(x, c, 8)
+    for i in range(3):
+        assert torch.equal(captured[i], want[i])
+    for i in (3, 4, 6):
+        assert close(captured[i], want[i], **TOL)
+    log(f"  ok {shape}: fused_boundary bit-equal across 2 calls and 50 "
+        f"graph replays")
+    del graph
 
 
 def check_best(torch, got, want, sims, name):
@@ -327,17 +385,19 @@ def main() -> int:
     t_serve = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20)
     t_serve4 = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20, bits=4)
     t_large = time_kernels(torch, K, LARGE_SHAPE, inner=3, outer=10)
-    # which of the two launches of K1 / K4 takes the time at serve's shape
+    # the kernels K1 / K4 launch per call at serve's shape: one each
     x = torch.randn(SERVE_SHAPE[:3], device="cuda")
     c = torch.randn((SERVE_SHAPE[3], SERVE_SHAPE[2]), device="cuda")
     for name, fn in (("fused_boundary", lambda: boundary.fused_boundary(
             x, c, 8)), ("semantic_probe",
                         lambda: semantic_cache.semantic_probe(x, c))):
         rows, _ = device_profile(torch, fn, 50)
-        parts = [f"{KERNEL_NAME.search(n).group()} {ms * 1e3:.2f} us"
-                 for n, _, ms in rows]
-        log(f"  {name} at {SERVE_SHAPE}, per launch (profiler, eager): "
+        parts = [f"{KERNEL_NAME.search(n).group()} x{count:.0f} "
+                 f"{ms * 1e3:.2f} us" for n, count, ms in rows]
+        log(f"  {name} at {SERVE_SHAPE}, per call (profiler, eager): "
             + "; ".join(parts))
+        assert [r[1] for r in rows] == [1.0], \
+            f"{name} should be one kernel launch per call: {parts}"
 
     log("== phase 4: serve 24 requests on full-width gemma2-2b")
     cfg = get_config("gemma2-2b")
@@ -432,7 +492,7 @@ def main() -> int:
     for name in REPLACES:
         s = t_serve[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": CU_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": int(launches[name]),
             "max_abs_err": errs[name], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

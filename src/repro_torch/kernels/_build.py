@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs
-at first use, from the sources in this package only, into
-``kernels/build/`` beside this file (listed in ``.gitignore``).  The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt; the compiler writes to a temporary name that is then
-``os.replace``d, so two processes building at once do not race.
+library with a plain C interface, loaded with ``ctypes``: one ``nvcc -c``
+per source, all started together, then one link.  The build runs at first
+use, from the sources in this package only, into ``kernels/build/``
+beside this file (listed in ``.gitignore``).  The library's name carries
+a hash of the sources, headers and flags, so an edited source is rebuilt;
+the linker writes to a temporary name that is then ``os.replace``d, so two
+processes building at once do not race.
 
 ``LAUNCHES`` counts kernel launches by wrapper name: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
@@ -29,25 +30,33 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("coach_kernels.cu",)
+SOURCES = ("coach_kernels.cu", "row_pass_f32.cu", "row_pass_bf16.cu",
+           "row_pass_f16.cu", "row_pass_f32_scalar.cu",
+           "row_pass_bf16_scalar.cu", "row_pass_f16_scalar.cu")
+HEADERS = ("common.cuh", "row_pass.cuh")
 # never --use_fast_math: the wire fields must match the plain version
 # bit for bit (IEEE division and rounding)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, in order (see csrc/coach_kernels.cu)
 _SIGNATURES = {
-    "coach_fused_boundary": [_P] * 10 + [_I] * 6 + [_P],
-    "coach_uaq_quantize": [_P] * 4 + [_I] * 4 + [_P],
-    "coach_semantic_probe": [_P] * 6 + [_I] * 5 + [_P],
-    "coach_uaq_dequantize": [_P] * 4 + [_I] * 4 + [_P],
+    "coach_fused_boundary": [_P] * 11 + [_I] * 8 + [_P],
+    "coach_uaq_quantize": [_P] * 4 + [_I] * 6 + [_P],
+    "coach_semantic_probe": [_P] * 7 + [_I] * 7 + [_P],
+    "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
 }
+# element types the kernels read (activations) and write (dequantized
+# values), by the code the entry points take (enum DType in the source)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ACTIVATION_DTYPES = tuple(DTYPE_CODES)
 
 _lock = threading.Lock()
 _lib = None
+_counters: dict = {}
 
 
 def _nvcc() -> str:
@@ -64,7 +73,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -81,21 +90,28 @@ def build(verbose: bool = False) -> Path:
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC / s) for s in SOURCES]]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            outs = [p.communicate()[0] for p in procs]
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                    os.path.join(tmp, "lib.so"), *objs]
+            for cmd, proc, out in zip(cmds, procs, outs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(cmd)}\n{out}")
+            proc = subprocess.run(link, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(link)}\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            log.write_text("".join(outs))
+            os.replace(os.path.join(tmp, "lib.so"), lib)
     if verbose:
         print(log.read_text() if log.exists() else f"(no build log for {lib})")
     return lib
@@ -115,14 +131,53 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-# row passes: aim for about this many CTAs (4 per SM of an H100); a
-# function of the shape only, so the GAP summation order is the same on
-# every card
-TARGET_CTAS = 528
+# row passes: CTAs of ROW_WARPS warps; a lane holds LANE_ELEMS elements of
+# a row, so a row takes a group of 1, 2 or 4 warps (MAX_ROW elements at
+# most).  Few rows get whole groups of 4 warps each, so the card still
+# has about TARGET_WARPS warps of work.  Each batch row's S rows are dealt
+# out to at most TARGET_CTAS // B CTAs, at least a row per group, so the
+# grid fits in one wave of 3 CTAs on each of an H100's 132 SMs when it
+# can.  A function of the shape only, so the GAP summation order is the
+# same on every card.
+ROW_WARPS = 4
+LANE_ELEMS = 72
+MAX_ROW = ROW_WARPS * 32 * LANE_ELEMS
+TARGET_CTAS = 3 * 132
+TARGET_WARPS = ROW_WARPS * TARGET_CTAS
 
 
-def rows_per_cta(B: int, S: int) -> int:
-    return max(1, -(-B * S // TARGET_CTAS))
+def launch_shape(B: int, S: int, D: int):
+    """(rows per CTA, warps per row) of a row pass over (B, S, D)."""
+    wpr = 1
+    while wpr * 32 * LANE_ELEMS < D:
+        wpr *= 2
+    while wpr < ROW_WARPS and B * S * wpr < TARGET_WARPS:
+        wpr *= 2
+    chunks = max(1, TARGET_CTAS // B)  # CTAs per batch row
+    return max(ROW_WARPS // wpr, -(-S // chunks)), wpr
+
+
+def check_row_width(n: int) -> None:
+    if n > MAX_ROW:
+        raise ValueError(f"rows of {n} elements: the row-pass kernels take "
+                         f"at most {MAX_ROW}")
+
+
+def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters for a probe launch on
+    ``t``'s device and current stream.  The kernel leaves them at 0 when
+    it ends, so one buffer per (device, stream) serves every launch there
+    without a fill; launches on other streams get their own.  The buffer
+    is made once and kept, so replays of a captured launch reuse it; when
+    it is made inside a CUDA-graph capture, its fill is part of the graph
+    (so that graph runs before any launch outside it on that stream)."""
+    key = (t.device.index, stream_of(t))
+    with _lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 64), dtype=torch.int32, device=t.device)
+            _counters[key] = buf
+    return buf
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -139,15 +194,17 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+def require(t: torch.Tensor, name: str, dtype, ndim: int,
             device: torch.device) -> None:
     """Raise unless ``t`` is what the kernel takes: a contiguous tensor of
-    ``dtype`` with ``ndim`` dims on the CUDA ``device``."""
+    ``dtype`` (one dtype or a tuple of them) with ``ndim`` dims on the
+    CUDA ``device``."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
-                        f"{dtype}")
+                        f"{' or '.join(str(d) for d in dtypes)}")
     if t.dim() != ndim:
         raise ValueError(f"{name} has shape {tuple(t.shape)}; the kernel "
                          f"takes {ndim} dims")
@@ -162,9 +219,9 @@ def check_bits(bits: int) -> None:
 
 
 def require_probe_inputs(x: torch.Tensor, centers: torch.Tensor):
-    """Check the (B, S, D) activation and (L, D) centers a probe kernel
-    takes; returns (B, S, D, L)."""
-    require(x, "x", torch.float32, 3, x.device)
+    """Check the (B, S, D) activation (float32, bfloat16 or float16) and
+    float32 (L, D) centers a probe kernel takes; returns (B, S, D, L)."""
+    require(x, "x", ACTIVATION_DTYPES, 3, x.device)
     require(centers, "centers", torch.float32, 2, x.device)
     B, S, D = x.shape
     L = centers.shape[0]
@@ -173,6 +230,7 @@ def require_probe_inputs(x: torch.Tensor, centers: torch.Tensor):
                          f"{tuple(centers.shape)}: the kernel takes "
                          f"non-empty x, 1 <= B <= 65535, L >= 1 centers "
                          f"of width D")
+    check_row_width(D)
     return B, S, D, L
 
 

@@ -5,8 +5,9 @@ kernels that replace the Pallas ``uaq_quantize`` / ``uaq_dequantize``
 On a CUDA tensor each wrapper launches its kernel (``csrc/coach_kernels.cu``)
 or raises; on a CPU tensor it runs the plain PyTorch version in
 ``kernels.ref``.  Unlike the Pallas kernels, any row count M works (no
-block-multiple assert).  The kernels take float32 activations and write
-float32 dequantized values.
+block-multiple assert).  Like the Pallas kernels, they read float32,
+bfloat16 or float16 activations (all quantize math in float32) and write
+the dequantized values in any of the three.
 """
 
 from __future__ import annotations
@@ -26,18 +27,20 @@ def uaq_quantize(x: torch.Tensor, bits: int):
     KB.check_bits(bits)
     if KB.on_cpu(x):
         return ref.uaq_quantize_ref(x, bits)
-    KB.require(x, "x", torch.float32, 2, x.device)
+    KB.require(x, "x", KB.ACTIVATION_DTYPES, 2, x.device)
     M, N = x.shape
     if M == 0 or N == 0:
         raise ValueError(f"x has shape {tuple(x.shape)}: nothing to quantize")
+    KB.check_row_width(N)
     P = (N + 1) // 2 if bits == 4 else N
     payload = torch.empty((M, P), dtype=torch.uint8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     zp = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    r, wpr = KB.launch_shape(1, M, N)
     with torch.cuda.device(x.device):
         err = KB.lib().coach_uaq_quantize(
             x.data_ptr(), payload.data_ptr(), scale.data_ptr(),
-            zp.data_ptr(), M, N, bits, KB.rows_per_cta(1, M),
+            zp.data_ptr(), M, N, bits, r, wpr, KB.DTYPE_CODES[x.dtype],
             KB.stream_of(x))
     KB.check(err, "uaq_quantize")
     KB.LAUNCHES["uaq_quantize"] += 1
@@ -67,15 +70,17 @@ def uaq_dequantize(packed: torch.Tensor, scale: torch.Tensor,
         if tuple(t.shape) != (M, 1):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"({M}, 1)")
-    if out_dtype != torch.float32:
-        raise TypeError(f"out_dtype={out_dtype}: the kernel writes float32")
+    if out_dtype not in KB.DTYPE_CODES:
+        raise TypeError(f"out_dtype={out_dtype}: the kernel writes "
+                        f"float32, bfloat16 or float16")
     if M == 0:
         raise ValueError("packed has no rows: nothing to dequantize")
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         err = KB.lib().coach_uaq_dequantize(
             packed.data_ptr(), scale.data_ptr(), zp.data_ptr(),
-            out.data_ptr(), M, n_in, N, bits, KB.stream_of(packed))
+            out.data_ptr(), M, n_in, N, bits, KB.DTYPE_CODES[out_dtype],
+            KB.stream_of(packed))
     KB.check(err, "uaq_dequantize")
     KB.LAUNCHES["uaq_dequantize"] += 1
     return out

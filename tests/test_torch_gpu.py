@@ -52,12 +52,31 @@ def _near(a, b, tol=PROBE_TOL):
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol)
 
 
+# the JAX package's test shapes, serve's, and rows that take a group of 2
+# and of 4 warps (D = 4608, 9216)
+SHAPES = [(2, 64, 32, 5), (3, 100, 33, 4), (1, 1, 16, 2), (1, 8, 2304, 16),
+          (13, 700, 64, 7), (2, 16, 4608, 3), (1, 4, 9216, 2)]
+
+
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("B,S,D,L", [(2, 64, 32, 5), (3, 100, 33, 4),
-                                     (1, 1, 16, 2), (1, 8, 2304, 16),
-                                     (13, 700, 64, 7)])
+@pytest.mark.parametrize("B,S,D,L", SHAPES)
 def test_kernels_match_plain_versions(cuda, B, S, D, L, bits):
+    _check_all_kernels(cuda, B, S, D, L, bits, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,S,D,L", SHAPES)
+def test_kernels_match_plain_versions_in_16_bit(cuda, B, S, D, L, bits,
+                                                dtype):
+    """The kernels read bfloat16/float16 activations and write 16-bit
+    dequantized values, as the Pallas kernels do."""
+    _check_all_kernels(cuda, B, S, D, L, bits, dtype)
+
+
+def _check_all_kernels(cuda, B, S, D, L, bits, dtype):
     x, c = _inputs(B, S, D, L, cuda, seed=B * S)
+    x = x.to(dtype)
     before = dict(KB.LAUNCHES)
     got = fused_boundary(x, c, bits)
     want = ref.fused_boundary_ref(x, c, bits)
@@ -70,8 +89,8 @@ def test_kernels_match_plain_versions(cuda, B, S, D, L, bits):
     q = uaq_quantize(x2, bits)
     for g, w in zip(q, ref.uaq_quantize_ref(x2, bits)):
         assert torch.equal(g, w)
-    assert torch.equal(uaq_dequantize(*q, bits, n=D),
-                       ref.uaq_dequantize_ref(*q, bits, n=D))
+    assert torch.equal(uaq_dequantize(*q, bits, dtype, n=D),
+                       ref.uaq_dequantize_ref(*q, bits, dtype, n=D))
     sep, best, sims = semantic_probe(x, c)
     wsep, wbest, wsims = ref.semantic_probe_ref(x, c)
     _near(sep, wsep)
@@ -110,11 +129,40 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fused_boundary(x, c, 5)
     with pytest.raises(ValueError):
         semantic_probe(x, c.cpu())
+    with pytest.raises(TypeError):
+        uaq_quantize(x.reshape(16, 48).double(), 8)
+    with pytest.raises(ValueError):
+        fused_boundary(torch.zeros((1, 2, 9224), device=cuda),
+                       torch.zeros((2, 9224), device=cuda), 8)
     p, s, z = uaq_quantize(x.reshape(16, 48), 8)
     with pytest.raises(TypeError):
-        uaq_dequantize(p, s, z, 8, out_dtype=torch.bfloat16)
+        uaq_dequantize(p, s, z, 8, out_dtype=torch.float64)
     with pytest.raises(ValueError):
         uaq_dequantize(p, s[:8].contiguous(), z, 8)
+
+
+def test_fused_boundary_is_deterministic_across_calls_and_graph_replays(cuda):
+    """feat is summed in a fixed order (no float atomics), and the arrival
+    counters the one-launch epilogue uses are back at 0 after every
+    launch, also when a captured launch is replayed many times."""
+    x, c = _inputs(8, 512, 2304, 16, cuda, seed=7)
+    first = fused_boundary(x, c, 4)
+    second = fused_boundary(x, c, 4)
+    for g, w in zip(first, second):
+        assert torch.equal(g, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_boundary(x, c, 4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_boundary(x, c, 4)
+    for _ in range(50):
+        graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(captured, first):
+        assert torch.equal(g, w)
 
 
 def test_forward_and_runtime_on_card_match_cpu(cuda):

@@ -10,6 +10,9 @@ summed in another order by XLA and by torch: ``PROBE_TOL`` (atol 1e-5,
 rtol 1e-4), the tolerance the JAX package's own probe tests use.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -32,6 +35,8 @@ from repro_torch.kernels.uaq import uaq_dequantize, uaq_quantize  # noqa: E402
 
 PROBE_TOL = dict(atol=1e-5, rtol=1e-4)
 SHAPES = [(2, 64, 32, 5), (3, 100, 33, 4), (1, 1, 16, 2)]
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
+        "float16": (torch.float16, jnp.float16)}
 
 
 def _inputs(B, S, D, L, seed=0):
@@ -131,6 +136,66 @@ def test_ragged_rows_match_jitted_ref(bits):
         lambda a, b, c: JR.uaq_dequantize_ref(a, b, c, bits))(*want))
 
 
+# ------------------------------- 16-bit activations and outputs vs Pallas
+def _half(x, name):
+    """The same 16-bit values in both frameworks (both round the float32
+    numpy input to nearest even)."""
+    tdt, jdt = HALF[name]
+    xt, xj = torch.from_numpy(x).to(tdt), jnp.asarray(x).astype(jdt)
+    _eq(xt.float(), xj.astype(jnp.float32))
+    return xt, xj
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,S,D,L", SHAPES)
+def test_fused_boundary_16_bit_matches_pallas(B, S, D, L, bits, dtype):
+    """The Pallas kernel widens x to float32 (``boundary.py:41``); so does
+    the port, through its public entry point (the plain version on the
+    CPU)."""
+    x, c = _inputs(B, S, D, L)
+    xt, xj = _half(x, dtype)
+    got = fused_boundary(xt, torch.from_numpy(c), bits)
+    want = j_fused(xj, jnp.asarray(c), bits, interpret=True)
+    for i in range(3):  # payload, scale, zp
+        _eq(got[i], want[i])
+    for i in (3, 4, 6):  # feat, sep, sims
+        _near(got[i], want[i])
+    _eq(got[5], want[5])
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,S,D,L", SHAPES)
+def test_uaq_16_bit_matches_pallas(B, S, D, L, bits, dtype):
+    """16-bit activations into ``uaq_quantize`` (``uaq.py:28`` widens
+    them) and 16-bit ``out_dtype`` out of ``uaq_dequantize``
+    (``uaq.py:60-61`` rounds to it), bit for bit."""
+    x, _ = _inputs(B, S, D, L, seed=1)
+    xt, xj = _half(x.reshape(B * S, D), dtype)
+    got = uaq_quantize(xt, bits)
+    want = j_quant(xj, bits, block_m=B * S, interpret=True)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    tdt, jdt = HALF[dtype]
+    deq = uaq_dequantize(*got, bits, tdt, n=D)
+    assert deq.dtype == tdt
+    _eq(deq.float(), j_dequant(*want, bits, out_dtype=jdt, block_m=B * S,
+                               interpret=True, n=D).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("B,S,D,L", SHAPES + [(13, 700, 64, 7)])
+def test_semantic_probe_16_bit_matches_pallas(B, S, D, L, dtype):
+    x, c = _inputs(B, S, D, L, seed=2)
+    xt, xj = _half(x, dtype)
+    sep, best, sims = semantic_probe(xt, torch.from_numpy(c))
+    want = j_probe(xj, jnp.asarray(c), interpret=True)
+    _near(sep, want[0])
+    _eq(best, want[1])
+    _near(sims, want[2])
+
+
 # ------------------------------------------------ dispatch on the CPU
 @pytest.mark.parametrize("bits", [4, 8])
 def test_boundary_pass_dispatches_to_exact_ref_on_cpu(bits):
@@ -219,6 +284,13 @@ def test_require_checks_what_the_kernel_takes():
     KB.require(t, "t", torch.float32, 2, cpu)
     with pytest.raises(TypeError):
         KB.require(t.double(), "t", torch.float32, 2, cpu)
+    for dtype in (torch.bfloat16, torch.float16):
+        KB.require(t.to(dtype), "t", KB.ACTIVATION_DTYPES, 2, cpu)
+    with pytest.raises(TypeError, match="bfloat16"):
+        KB.require(t.double(), "t", KB.ACTIVATION_DTYPES, 2, cpu)
+    KB.check_row_width(KB.MAX_ROW)
+    with pytest.raises(ValueError):
+        KB.check_row_width(KB.MAX_ROW + 8)
     with pytest.raises(ValueError):
         KB.require(t, "t", torch.float32, 3, cpu)
     with pytest.raises(ValueError):
@@ -234,9 +306,39 @@ def test_require_checks_what_the_kernel_takes():
 
 
 def test_launch_shape_depends_on_the_shape_only():
-    assert KB.rows_per_cta(1, 8) == 1
-    assert KB.rows_per_cta(8, 4096) == 63  # 528 CTAs of 63 rows
-    assert KB.rows_per_cta(300, 8) == 5
+    assert KB.launch_shape(1, 8, 2304) == (1, 4)  # few rows: 4 warps a row
+    assert KB.launch_shape(8, 4096, 2304) == (84, 1)  # 8 x 49 CTAs
+    assert KB.launch_shape(300, 8, 2304) == (8, 1)  # a CTA a batch row
+    assert KB.launch_shape(300, 8, 4608) == (8, 2)  # wide rows: 2 warps
+    assert KB.launch_shape(1, 32768, 2304) == (83, 1)  # 395 CTAs
+    assert KB.launch_shape(2, 64, 33) == (1, 4)
+    assert KB.MAX_ROW == 9216
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """A pointer passed as a 32-bit int is cut on the card, and no CPU
+    test calls the library: so parse every ``extern "C"`` entry point of
+    the sources and hold ``_build``'s ctypes argument types (and dtype
+    codes) to it."""
+    src = "".join((KB.CSRC / f).read_text()
+                  for f in KB.SOURCES + KB.HEADERS)
+    found = {}
+    for name, args in re.findall(r'extern "C" int (coach_\w+)\(([^)]*)\)',
+                                 src):
+        kinds = []
+        for arg in (" ".join(a.split()) for a in args.split(",")):
+            if "*" in arg:
+                kinds.append(ctypes.c_void_p)
+            else:
+                assert re.fullmatch(r"int \w+", arg), arg
+                kinds.append(ctypes.c_int)
+        found[name] = kinds
+    assert found == KB._SIGNATURES
+    enum = re.search(r"enum DType \{([^}]*)\}", src).group(1)
+    codes = [int(v) for v in re.findall(r"= (\d+)", enum)]
+    assert codes == list(KB.DTYPE_CODES.values())
+    assert list(KB.DTYPE_CODES) == [torch.float32, torch.bfloat16,
+                                    torch.float16]
 
 
 def test_build_is_for_sm_90a_without_fast_math(monkeypatch, tmp_path):
