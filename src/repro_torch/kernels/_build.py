@@ -135,14 +135,15 @@ def lib() -> ctypes.CDLL:
 # a row, so a row takes a group of 1, 2 or 4 warps (MAX_ROW elements at
 # most).  Few rows get whole groups of 4 warps each, so the card still
 # has about TARGET_WARPS warps of work.  Each batch row's S rows are dealt
-# out to at most TARGET_CTAS // B CTAs, at least a row per group, so the
-# grid fits in one wave of 3 CTAs on each of an H100's 132 SMs when it
-# can.  A function of the shape only, so the GAP summation order is the
-# same on every card.
+# out to at most TARGET_CTAS // B CTAs, at least a row per group: one
+# wave of 2 CTAs on each of an H100's 132 SMs when it can (registers allow
+# 3, but 2 measured faster at (8, 4096, 2304): fewer partial rows for the
+# probe epilogue).  A function of the shape only, so the GAP summation
+# order is the same on every card.
 ROW_WARPS = 4
 LANE_ELEMS = 72
 MAX_ROW = ROW_WARPS * 32 * LANE_ELEMS
-TARGET_CTAS = 3 * 132
+TARGET_CTAS = 2 * 132
 TARGET_WARPS = ROW_WARPS * TARGET_CTAS
 
 

@@ -307,10 +307,10 @@ def test_require_checks_what_the_kernel_takes():
 
 def test_launch_shape_depends_on_the_shape_only():
     assert KB.launch_shape(1, 8, 2304) == (1, 4)  # few rows: 4 warps a row
-    assert KB.launch_shape(8, 4096, 2304) == (84, 1)  # 8 x 49 CTAs
+    assert KB.launch_shape(8, 4096, 2304) == (125, 1)  # 8 x 33 CTAs
     assert KB.launch_shape(300, 8, 2304) == (8, 1)  # a CTA a batch row
     assert KB.launch_shape(300, 8, 4608) == (8, 2)  # wide rows: 2 warps
-    assert KB.launch_shape(1, 32768, 2304) == (83, 1)  # 395 CTAs
+    assert KB.launch_shape(1, 32768, 2304) == (125, 1)  # 263 CTAs
     assert KB.launch_shape(2, 64, 33) == (1, 4)
     assert KB.MAX_ROW == 9216
 
