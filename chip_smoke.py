@@ -12,10 +12,13 @@ Phases (any failure exits non-zero before the last line):
      dequantized values of the same type): wire fields (payload, scale,
      zp, dequantized values) bit-equal, probe fields (feat, sims, sep)
      within TOL, ``best`` equal except at near-ties; the fused boundary
-     kernel's outputs bit-equal across two calls and after 50 replays of
-     a captured call (its arrival counters go back to 0);
-  3. time each kernel and its plain version (CUDA graphs of back-to-back
-     launches, CUDA events, median) beside the bytes/operations bound;
+     kernel's outputs bit-equal across two calls, after 50 replays of a
+     captured call (its arrival counters go back to 0), and when two
+     graphs captured on one stream are replayed out of order and at once
+     (each has its own counters);
+  3. time each kernel and its plain version at 8 and 4 bits (CUDA graphs
+     of back-to-back launches, CUDA events, median) beside the
+     bytes/operations bound;
   4. serve 24 requests on full-width gemma2-2b (random weights from a
      seed) through ``repro_torch.launch.serve.serve`` and require the
      fused boundary and dequantize kernels to have launched;
@@ -159,38 +162,56 @@ def check_kernels(torch, K):
 def check_repeatable(torch, K, shape):
     """Two calls of the fused boundary kernel give bit-equal outputs, and
     so do 50 replays of a captured call, which would go wrong if the
-    arrival counters did not go back to 0; the replayed outputs also match
-    the plain version."""
+    arrival counters did not go back to 0.  A second graph, captured right
+    after the first on the same stream, is replayed before it and then at
+    the same time on another stream, which would go wrong if the two
+    shared counters.  Every replayed output also matches the plain
+    version."""
     B, S, D, L = shape
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn((B, S, D), generator=gen, device="cuda")
+    xs = [torch.randn((B, S, D), generator=gen, device="cuda")
+          for _ in range(2)]
     c = torch.randn((L, D), generator=gen, device="cuda")
     fb = K["boundary"].fused_boundary
-    first, second = fb(x, c, 8), fb(x, c, 8)
+    first, second = fb(xs[0], c, 8), fb(xs[0], c, 8)
     for g, w in zip(first, second):
         assert torch.equal(g, w), f"fused_boundary not repeatable at {shape}"
+    eager = [first, fb(xs[1], c, 8)]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fb(x, c, 8)
+        fb(xs[0], c, 8)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = fb(x, c, 8)
-    for _ in range(50):
-        graph.replay()
+    graphs, captured = [], []
+    for x in xs:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            captured.append(fb(x, c, 8))
     torch.cuda.synchronize()
-    for g, w in zip(captured, first):
-        assert torch.equal(g, w), \
-            f"fused_boundary differs after graph replays at {shape}"
-    want = K["ref"].fused_boundary_ref(x, c, 8)
-    for i in range(3):
-        assert torch.equal(captured[i], want[i])
-    for i in (3, 4, 6):
-        assert close(captured[i], want[i], **TOL)
-    log(f"  ok {shape}: fused_boundary bit-equal across 2 calls and 50 "
-        f"graph replays")
-    del graph
+    graphs[1].replay()
+    for _ in range(50):
+        graphs[0].replay()
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream()
+    for _ in range(10):
+        other.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(other):
+            graphs[1].replay()
+        graphs[0].replay()
+        torch.cuda.current_stream().wait_stream(other)
+    torch.cuda.synchronize()
+    for x, got, ref_out in zip(xs, captured, eager):
+        for g, w in zip(got, ref_out):
+            assert torch.equal(g, w), \
+                f"fused_boundary differs after graph replays at {shape}"
+        want = K["ref"].fused_boundary_ref(x, c, 8)
+        for i in range(3):
+            assert torch.equal(got[i], want[i])
+        for i in (3, 4, 6):
+            assert close(got[i], want[i], **TOL)
+    log(f"  ok {shape}: fused_boundary bit-equal across 2 calls, 50 graph "
+        f"replays, and two graphs replayed out of order and at once")
+    del graphs
 
 
 def check_best(torch, got, want, sims, name):
@@ -385,6 +406,7 @@ def main() -> int:
     t_serve = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20)
     t_serve4 = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20, bits=4)
     t_large = time_kernels(torch, K, LARGE_SHAPE, inner=3, outer=10)
+    t_large4 = time_kernels(torch, K, LARGE_SHAPE, inner=3, outer=10, bits=4)
     # the kernels K1 / K4 launch per call at serve's shape: one each
     x = torch.randn(SERVE_SHAPE[:3], device="cuda")
     c = torch.randn((SERVE_SHAPE[3], SERVE_SHAPE[2]), device="cuda")
@@ -502,6 +524,8 @@ def main() -> int:
                      "plain_ms": t_serve4[name]["plain_ms"],
                      "bound_ms": t_serve4[name]["bound_ms"]},
             "large": dict(t_large[name], shape=list(LARGE_SHAPE), bits=8),
+            "large_int4": dict(t_large4[name], shape=list(LARGE_SHAPE),
+                               bits=4),
         })
     log(f"request_ms={req_ms:.4f} request_device_busy_ms={busy_ms} "
         f"serve_wall_s={wall:.4f}")

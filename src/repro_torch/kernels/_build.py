@@ -48,6 +48,7 @@ _SIGNATURES = {
     "coach_uaq_quantize": [_P] * 4 + [_I] * 6 + [_P],
     "coach_semantic_probe": [_P] * 7 + [_I] * 7 + [_P],
     "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
+    "coach_capture_id": [_P, _P],
 }
 # element types the kernels read (activations) and write (dequantized
 # values), by the code the entry points take (enum DType in the source)
@@ -167,22 +168,42 @@ def check_row_width(n: int) -> None:
 def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters for a probe launch on
     ``t``'s device and current stream.  The kernel leaves them at 0 when
-    it ends, so one buffer per (device, stream) serves every launch there
-    without a fill; launches on other streams get their own.  The buffer
-    is made once and kept, so replays of a captured launch reuse it; when
-    it is made inside a CUDA-graph capture, its fill is part of the graph
-    (so that graph runs before any launch outside it on that stream)."""
-    key = (t.device.index, stream_of(t))
+    it ends, so a buffer serves, without a fill, every launch ordered
+    after its first one:
+      * outside a CUDA-graph capture, one buffer per (device, stream),
+        filled when it is made;
+      * inside a capture, one buffer per capture, made inside it, so its
+        fill is a node of that graph ahead of the graph's launches: every
+        replay starts from zeros, and no other graph shares it (graphs
+        captured one after another on one stream may be replayed in any
+        order, or at once on different streams).
+    Only the newest capture's buffer is kept here per (device, stream);
+    an older one stays in its graph's private memory pool, under torch's
+    rule for any memory there (graphs that share a pool are not replayed
+    at once)."""
+    stream = stream_of(t)
+    capture = capture_id(stream)
+    key = (t.device.index, stream)
     with _lock:
-        buf = _counters.get(key)
+        held = _counters.get(key, {})
+        buf = held.get(capture)
         if buf is None or buf.numel() < n:
             buf = torch.zeros(max(n, 64), dtype=torch.int32, device=t.device)
-            _counters[key] = buf
+            held = {c: b for c, b in held.items() if c in (0, capture)}
+            held[capture] = buf
+            _counters[key] = held
     return buf
 
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def capture_id(stream: int) -> int:
+    """The id of the CUDA-graph capture under way on ``stream``, or 0."""
+    cid = ctypes.c_ulonglong(0)
+    check(lib().coach_capture_id(stream, ctypes.byref(cid)), "capture_id")
+    return cid.value
 
 
 def on_cpu(t: torch.Tensor) -> bool:

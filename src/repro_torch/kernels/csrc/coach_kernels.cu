@@ -262,3 +262,14 @@ extern "C" int coach_uaq_dequantize(const void* payload, const void* scale,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The id of the CUDA-graph capture under way on `stream` into *id, or 0
+// when none is (the wrappers keep arrival counters per capture).
+extern "C" int coach_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  unsigned long long cid = 0;
+  const cudaError_t e = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &cid);
+  *id = e == cudaSuccess && status == cudaStreamCaptureStatusActive ? cid : 0;
+  return (int)e;
+}

@@ -4,10 +4,13 @@
 // design notes are in coach_kernels.cu.
 #pragma once
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxDevices = 64;
 constexpr int kRowWarps = 4;  // warps per row-pass CTA
 constexpr int kRowThreads = 32 * kRowWarps;
 constexpr int kRowCtasPerSm = 3;  // registers for 3 CTAs an SM (168 each)
@@ -413,17 +416,20 @@ cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
       GAP ? (size_t)(ng * a.D > a.D + a.L ? ng * a.D : a.D + a.L) * sizeof(float)
           : 0;
   auto kernel = row_pass_kernel<T, VEC, BITS, QUANT, GAP>;
-  // once per kernel, before any launch (so never during a graph capture):
-  // all of L1 as shared memory (3 CTAs an SM), and leave to use all of it
-  static int max_dyn = 0;
-  cudaError_t e = cudaSuccess;
-  if (max_dyn == 0) {
-    int dev = 0, optin = 0;
+  // once per kernel and device, before its first launch there: all of L1
+  // as shared memory (3 CTAs an SM), and leave to use all of it.  Threads
+  // that race here set the same values.
+  static std::atomic<int> max_dyn[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int md = max_dyn[dev].load(std::memory_order_acquire);
+  if (md == 0) {
+    int optin = 0;
     cudaFuncAttributes fa;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel,
@@ -433,11 +439,12 @@ cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
       e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin - (int)fa.sharedSizeBytes);
-    if (e == cudaSuccess) max_dyn = optin - (int)fa.sharedSizeBytes;
+    if (e != cudaSuccess) return e;
+    md = optin - (int)fa.sharedSizeBytes;
+    max_dyn[dev].store(md, std::memory_order_release);
   }
-  if (e != cudaSuccess) return e;
   if constexpr (GAP) {
-    if (smem > (size_t)max_dyn) return cudaErrorInvalidValue;
+    if (smem > (size_t)md) return cudaErrorInvalidValue;
   }
   kernel<<<dim3(n_chunks, a.B), kRowThreads, smem, st>>>(
       static_cast<const T*>(a.x), static_cast<uint8_t*>(a.payload),

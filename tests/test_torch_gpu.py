@@ -165,6 +165,49 @@ def test_fused_boundary_is_deterministic_across_calls_and_graph_replays(cuda):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("probe", ["fused_boundary", "semantic_probe"])
+def test_graphs_captured_on_one_stream_keep_their_own_counters(cuda, probe):
+    """Two graphs captured one after the other on the same stream, each
+    with a probe launch, replayed in reverse order and then at the same
+    time on two streams, each match the plain version: neither starts
+    from the other's counters or races on them."""
+    # the call, its plain version, and which outputs are probe fields
+    fn, plain, near = {
+        "fused_boundary": (lambda x, c: fused_boundary(x, c, 8),
+                           lambda x, c: ref.fused_boundary_ref(x, c, 8),
+                           (3, 4, 6)),
+        "semantic_probe": (semantic_probe, ref.semantic_probe_ref, (0, 2)),
+    }[probe]
+    xs = [_inputs(8, 512, 2304, 16, cuda, seed=s)[0] for s in (8, 9)]
+    c = _inputs(1, 1, 2304, 16, cuda, seed=10)[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(xs[0], c)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for x in xs:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append(fn(x, c))
+    graphs[1].replay()
+    graphs[0].replay()
+    other = torch.cuda.Stream()
+    for _ in range(10):
+        other.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(other):
+            graphs[1].replay()
+        graphs[0].replay()
+        torch.cuda.current_stream().wait_stream(other)
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        for i, (g, w) in enumerate(zip(got, plain(x, c))):
+            if i in near:
+                _near(g, w)
+            else:
+                assert torch.equal(g, w)
+
+
 def test_forward_and_runtime_on_card_match_cpu(cuda):
     cfg = get_config("gemma2-2b").reduced()
     params = M.init_params(cfg, seed=0, device="cpu")

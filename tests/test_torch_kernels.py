@@ -315,6 +315,33 @@ def test_launch_shape_depends_on_the_shape_only():
     assert KB.MAX_ROW == 9216
 
 
+def test_arrival_counters_are_kept_per_stream_and_per_capture(monkeypatch):
+    """Outside a capture one zeroed buffer per (device, stream) is reused;
+    each CUDA-graph capture gets its own, made inside it, so two graphs
+    captured on one stream never share counters; only the newest
+    capture's buffer is kept beside the stream's own."""
+    state = {"stream": 1, "capture": 0}
+    monkeypatch.setattr(KB, "stream_of", lambda t: state["stream"])
+    monkeypatch.setattr(KB, "capture_id", lambda s: state["capture"])
+    monkeypatch.setattr(KB, "_counters", {})
+    t = torch.zeros(1)
+    eager = KB.arrival_counters(t, 8)
+    assert eager.dtype == torch.int32 and not eager.any()
+    assert KB.arrival_counters(t, 8) is eager
+    state["capture"] = 5
+    first = KB.arrival_counters(t, 8)
+    assert first is not eager and KB.arrival_counters(t, 4) is first
+    state["capture"] = 6
+    second = KB.arrival_counters(t, 8)
+    assert second is not first
+    assert set(KB._counters[(t.device.index, 1)]) == {0, 6}
+    state["capture"] = 0
+    assert KB.arrival_counters(t, 8) is eager
+    assert KB.arrival_counters(t, 1000).numel() >= 1000  # grown, refilled
+    state["stream"] = 2
+    assert KB.arrival_counters(t, 8) is not eager
+
+
 def test_ctypes_signatures_match_the_c_entry_points():
     """A pointer passed as a 32-bit int is cut on the card, and no CPU
     test calls the library: so parse every ``extern "C"`` entry point of
