@@ -18,7 +18,8 @@ Phases (any failure exits non-zero before the last line):
      (each has its own counters);
   3. time each kernel and its plain version at 8 and 4 bits (CUDA graphs
      of back-to-back launches, CUDA events, median) beside the
-     bytes/operations bound;
+     bytes/operations bound, at serve's shape on gemma2-2b, mamba2-130m
+     and mixtral-8x7b widths and at a large shape;
   4. serve 24 requests on full-width gemma2-2b (random weights from a
      seed) through ``repro_torch.launch.serve.serve`` and require the
      fused boundary and dequantize kernels to have launched;
@@ -26,8 +27,16 @@ Phases (any failure exits non-zero before the last line):
      dequantize kernels) and the standalone probe (semantic-probe
      kernel), check the logits against the monolithic forward, time one
      steady request and profile where its device time goes;
-  6. print the card's name and power limit, the kernels' JSON line, and
-     the contract line.
+  6. phases 4 and 5 on full-width mamba2-130m (24 layers);
+  7. phases 4 and 5 on full-width mixtral-8x7b cut to 4 of its 32 layers
+     (the 32 take ~187 GB in fp32, more than one card holds);
+  8. greedy ``generate`` of 32 tokens after a 64-token prompt on that
+     mixtral (dropless), full-width gemma2-2b and mamba2-130m: every token
+     the forward's argmax (or a near-tie), decode ms/token beside the
+     weight-bytes bound;
+  then print each phase's numbers, the card's name and power limit, the
+  kernels' JSON line (launches summed over phases 4-7's main-path runs),
+  and the contract line.
 
 Exits with code 2 and prints no result when CUDA is not available or
 ``src/repro_torch`` is not beside this script.
@@ -35,6 +44,7 @@ Exits with code 2 and prints no result when CUDA is not available or
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -54,9 +64,25 @@ FP32_OPS_PER_S = 67e12
 # fp32 tolerance of the probe fields: GAP over up to 4096 rows and D-long
 # dot products are summed in another order by the kernel than by torch
 TOL = dict(atol=1e-5, rtol=1e-4)
-CHECK_SHAPES = [  # (B, S, D, L): tests/test_boundary.py, serve, calib, large
+# a generated token may differ from the forward's argmax only where the
+# forward's top-2 logits are this close, relative to the row's largest
+# |logit| (decode and forward run fp32 GEMMs of other shapes)
+GEN_TIE_RTOL = 1e-3
+# split vs monolithic logits (relative L2 error) by bit width: phase 5's
+# bounds on gemma2-2b, and for phases 6-7 the 8-bit bound scaled by the
+# quantum ratio 255/15 at 4 bits.  The logits' error grows with the
+# quantum (4b/8b error ratio 15.9-17.1 on gemma2-2b and mamba2-130m), and
+# how far it grows per unit of boundary error is the model's: with random
+# weights mamba2-130m moves its logits ~2.5x the boundary's relative
+# error, gemma2-2b ~1.3x (the equal-noise line of each runtime check)
+SPLIT_BOUND = {8: 0.02, 4: 0.25}
+SPLIT_BOUND_SCALED = {8: 0.02, 4: 0.02 * 255 / 15}
+CHECK_SHAPES = [  # (B, S, D, L): tests/test_boundary.py, serve, calib, large,
+    # and serve on mamba2-130m (D = 768) and mixtral-8x7b (D = 4096, rows in
+    # groups of 2 warps)
     (2, 64, 32, 5), (3, 100, 33, 4), (1, 1, 16, 2),
-    (1, 8, 2304, 16), (300, 8, 2304, 16), (8, 4096, 2304, 16)]
+    (1, 8, 2304, 16), (300, 8, 2304, 16), (8, 4096, 2304, 16),
+    (1, 8, 768, 16), (1, 8, 4096, 16)]
 RAGGED_M = [(257, 2304), (1000, 33), (2399, 2304)]  # K2/K3 only
 DTYPES = ("float32", "bfloat16", "float16")  # activations, dequant output
 SERVE_SHAPE = (1, 8, 2304, 16)
@@ -361,6 +387,229 @@ def rel_err(torch, a, b):
                  / torch.linalg.vector_norm(b))
 
 
+def init_params(torch, M, cfg):
+    """Random fp32 weights from seed 0 on the card."""
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {M.param_count(params) / 1e9:.3f} B in "
+        f"{time.time() - t0:.1f}s")
+    return params
+
+
+def serve_check(torch, arch, params, requests=24):
+    """``serve`` on ``params`` (at their depth) with the launch counts set
+    to 0 just before and read just after; requires the fused boundary and
+    dequantize kernels to have launched.  Returns (launches, wall s)."""
+    from repro_torch.kernels import _build as KB
+    from repro_torch.launch.serve import serve
+    KB.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stats = serve(arch, smoke=False, requests=requests, device="cuda",
+                  params=params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(KB.LAUNCHES)
+    log(f"serve wall {wall:.3f}s incl. planner and 300-task calibration "
+        f"({wall / requests * 1e3:.1f} ms/request upper bound); "
+        f"launches {launches}")
+    for name in ("fused_boundary", "uaq_dequantize"):
+        assert launches.get(name, 0) > 0, f"serve never launched {name}"
+    assert 0.0 <= stats.exit_ratio <= 1.0 and stats.mean_bits > 0, stats
+    pr = stats.pipeline
+    assert math.isfinite(pr.mean_latency) and pr.throughput > 0
+    return launches, wall
+
+
+def runtime_check(torch, cfg, params, bounds):
+    """On a runtime at the planner's cut: the unfused hop (quantize +
+    dequantize kernels) and the standalone probe (semantic-probe kernel)
+    with the launch counts set to 0 just before and read just after;
+    split against monolithic logits at 4 and 8 bits within ``bounds``;
+    the hop's packet and dequantized values against the plain versions on
+    the same boundary activation; one steady request (fused end step +
+    cloud step) timed and profiled.  Returns (launches, request ms, device
+    busy ms or None)."""
+    from repro_torch.core.collab import CollabRuntime
+    from repro_torch.core.costs import (A6000_SERVER, JETSON_NX, WIFI_5GHZ,
+                                        transformer_graph)
+    from repro_torch.core.partitioner import coach_offline
+    from repro_torch.kernels import _build as KB
+    from repro_torch.kernels import ref
+    off = coach_offline(transformer_graph(cfg, batch=1, seq=128), JETSON_NX,
+                        A6000_SERVER, WIFI_5GHZ(50.0))
+    n_end = sum(1 for i in off.decision.end_set if 0 < i <= cfg.num_layers)
+    cut_group = min(max(1, round(n_end / cfg.group_size)),
+                    cfg.num_groups - 1)
+    rt = CollabRuntime(cfg, params, cut_group)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    centers = torch.randn((16, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        mono = rt.monolithic(params, toks)
+        KB.LAUNCHES.clear()
+        logits4, pkts = rt.run(toks, bits=(4,))
+        logits8, _ = rt.run(toks, bits=(8,))
+        _, h = rt.end_step(toks, bits=8)
+        sep, best, sims = rt.probe(h, centers)
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        psep, pbest, psims = ref.semantic_probe_ref(h, centers)
+    log(f"launches {launches}")
+    for name in ("uaq_quantize", "uaq_dequantize", "semantic_probe"):
+        assert launches.get(name, 0) > 0, \
+            f"the unfused hop and probe never launched {name}"
+    assert logits4.shape == (1, cfg.vocab_size), logits4.shape
+    for lg in (mono, logits4, logits8):
+        assert bool(torch.isfinite(lg).all()), "non-finite logits"
+    r4, r8 = rel_err(torch, logits4, mono), rel_err(torch, logits8, mono)
+    log(f"cut_group={cut_group} split vs monolithic rel err: "
+        f"4b {r4:.4g} (< {bounds[4]:.4g}), 8b {r8:.4g} (< {bounds[8]:.4g}); "
+        f"wire bytes {pkts[0].wire_bytes} vs fp32 {8 * cfg.d_model * 4}")
+    assert r8 < bounds[8] and r4 < bounds[4], (r4, r8)
+    assert close(sims, psims, **TOL) and close(sep, psep, **TOL)
+    check_best(torch, best, pbest, psims, "probe")
+    check_hop(torch, rt, toks, mono)
+
+    # one steady request on the serve path: fused end step + cloud step
+    def request():
+        pkt, _ = rt.end_step_fused(toks, centers)
+        return rt.cloud_step(pkt)
+
+    with torch.no_grad():
+        for _ in range(3):
+            request()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            per.append(time.perf_counter() - t0)
+    req_ms = statistics.median(per) * 1e3
+    log(f"steady request (end segment + fused boundary + dequantize + "
+        f"cloud segment + head): {req_ms:.2f} ms median of 10")
+    return launches, req_ms, profile_requests(torch, request, 3)
+
+
+def check_hop(torch, rt, toks, mono):
+    """The hop's packet and dequantized values bit-equal to the plain
+    versions on the same boundary activation (so the kernels add nothing
+    to the split's error), every dequantized value within half a quantum
+    of the activation, and the logits' response to Gaussian noise of the
+    same per-token norm at the boundary, for comparison with the split's
+    error."""
+    from repro_torch.kernels import ref
+    D = rt.cfg.d_model
+    with torch.no_grad():
+        for bits in (4, 8):
+            pkt, h = rt.end_step(toks, bits=bits)
+            deq = pkt.dequantize()
+            want = ref.uaq_quantize_ref(h.reshape(-1, D), bits)
+            for g, w in zip((pkt.payload, pkt.scale, pkt.zp), want):
+                assert torch.equal(g.reshape(w.shape), w), \
+                    f"{bits}b hop differs from the plain quantize"
+            assert torch.equal(deq, ref.uaq_dequantize_ref(
+                *want, bits, n=D).reshape(h.shape)), \
+                f"{bits}b hop differs from the plain dequantize"
+            err = deq - h
+            half = pkt.scale * (0.5 + 1e-5) + 1e-6
+            assert bool((err.abs() <= half).all()), \
+                f"{bits}b: a dequantized value is off by over half a quantum"
+            q = rel_err(torch, deq, h)
+            gen = torch.Generator(device="cuda").manual_seed(bits)
+            noisy = []
+            for _ in range(3):
+                n = torch.randn(h.shape, generator=gen, device="cuda")
+                n = n * err.norm(dim=-1, keepdim=True) \
+                    / n.norm(dim=-1, keepdim=True)
+                noisy.append(rel_err(torch, rt._cloud_fn(rt.p_cloud, h + n),
+                                     mono))
+            split = rel_err(torch, rt.cloud_step(pkt), mono)
+            log(f"  {bits}b hop == plain versions; boundary rel err {q:.4g} "
+                f"(each value within half a quantum); logits rel err: "
+                f"split {split:.4g} (gain {split / q:.3g}), equal-norm "
+                f"Gaussian noise {', '.join(f'{x:.4g}' for x in noisy)}")
+
+
+def decode_weight_bytes(cfg, params, M) -> int:
+    """Bytes of weights one decode step must read: every parameter, less
+    the experts a token is not routed to (E - k of E in each MoE layer)
+    and, when the head is not tied, all but one row of the embedding."""
+    nbytes = params["final_norm"]["scale"].element_size()
+    total = M.param_count(params)
+    if cfg.num_experts:
+        n_moe = sum(s.moe for s in cfg.pattern) * cfg.num_groups
+        total -= (3 * cfg.d_model * cfg.d_ff * n_moe
+                  * (cfg.num_experts - cfg.experts_per_token))
+    if "lm_head" in params and "embed" in params:
+        total -= (cfg.vocab_size - 1) * cfg.d_model
+    return total * nbytes
+
+
+def generation_check(torch, cfg, params, prompt_len=64, new=32):
+    """``generate`` greedy from a seeded prompt; every new token is the
+    argmax of the forward on the generated sequence (the forward is
+    causal, so its logits at position i are those of the prefix up to i),
+    or a near-tie: the forward's top-2 logits within GEN_TIE_RTOL of the
+    row's largest |logit|.  Then the decode steps alone, timed one by one,
+    and their logits against the forward on their own sequence.  Returns
+    (decode ms/token median, bound ms, all-weights bound ms)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import generate
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompt, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        assert out.shape == (1, prompt_len + new), out.shape
+        assert torch.equal(out[:, :prompt_len], prompt)
+        h, _, _ = M.forward(params, cfg, out)
+        logits = M._lm_head(params, cfg, h[0, prompt_len - 1:-1])
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        got, want = out[0, prompt_len:], torch.argmax(logits, dim=-1)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) \
+            <= GEN_TIE_RTOL * logits.abs().amax(dim=-1)
+        flips = got != want.to(got.dtype)
+        assert not bool((flips & ~tie).any()), \
+            f"generate: tokens {torch.nonzero(flips & ~tie).flatten()} " \
+            f"differ from the forward's argmax away from a near-tie"
+
+        lg, cache = M.prefill(params, cfg, prompt, prompt_len + new)
+        seq, step_logits, per = [prompt], [], []
+        for t in range(new - 1):
+            nxt = torch.argmax(lg, dim=-1)[:, None].to(prompt.dtype)
+            seq.append(nxt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = M.decode_step(params, cfg, cache, nxt,
+                                      prompt_len + t)
+            torch.cuda.synchronize()
+            per.append(time.perf_counter() - t0)
+            step_logits.append(lg)
+        seq = torch.cat(seq, dim=1)
+        h, _, _ = M.forward(params, cfg, seq)
+        want = M._lm_head(params, cfg, h[0, prompt_len:])
+        rel = rel_err(torch, torch.cat(step_logits), want)
+    assert rel < 1e-3, f"decode logits vs forward rel err {rel}"
+    ms = statistics.median(per) * 1e3
+    bound = decode_weight_bytes(cfg, params, M) / HBM_BYTES_PER_S * 1e3
+    every = M.param_count(params) * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"generate {new} tokens after {prompt_len}: {gen_s:.3f}s; "
+        f"{int(flips.sum())} near-tie flips; decode {ms:.3f} ms/token "
+        f"(median of {new - 1}) vs weight-bytes bound {bound:.3f} ms "
+        f"(all weights {every:.3f} ms); decode vs forward logits rel err "
+        f"{rel:.3g} (< 1e-3)")
+    return ms, bound, every
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -376,13 +625,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
-    from repro_torch.core.collab import CollabRuntime
-    from repro_torch.core.costs import (A6000_SERVER, JETSON_NX, WIFI_5GHZ,
-                                        transformer_graph)
-    from repro_torch.core.partitioner import coach_offline
     from repro_torch.kernels import _build as KB
     from repro_torch.kernels import boundary, ref, semantic_cache, uaq
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
     K = {"ref": ref, "boundary": boundary, "uaq": uaq,
          "semantic_cache": semantic_cache}
@@ -407,6 +651,9 @@ def main() -> int:
     t_serve4 = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20, bits=4)
     t_large = time_kernels(torch, K, LARGE_SHAPE, inner=3, outer=10)
     t_large4 = time_kernels(torch, K, LARGE_SHAPE, inner=3, outer=10, bits=4)
+    # serve's shape at mamba2-130m's and mixtral-8x7b's widths
+    t_width = {D: time_kernels(torch, K, (1, 8, D, 16), inner=200, outer=20)
+               for D in (768, 4096)}
     # the kernels K1 / K4 launch per call at serve's shape: one each
     x = torch.randn(SERVE_SHAPE[:3], device="cuda")
     c = torch.randn((SERVE_SHAPE[3], SERVE_SHAPE[2]), device="cuda")
@@ -421,85 +668,59 @@ def main() -> int:
         assert [r[1] for r in rows] == [1.0], \
             f"{name} should be one kernel launch per call: {parts}"
 
+    launches = {}  # summed over every phase's main-path run
+
+    def add_launches(phase_launches):
+        for name, n in phase_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
+    results = {}
     log("== phase 4: serve 24 requests on full-width gemma2-2b")
     cfg = get_config("gemma2-2b")
-    t0 = time.time()
-    params = M.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"params: {M.param_count(params) / 1e9:.3f} B in "
-        f"{time.time() - t0:.1f}s")
-    requests = 24
-    KB.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    stats = serve("gemma2-2b", smoke=False, requests=requests, device="cuda",
-                  params=params)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    serve_launches = dict(KB.LAUNCHES)
-    log(f"serve wall {wall:.3f}s incl. planner and 300-task calibration "
-        f"({wall / requests * 1e3:.1f} ms/request upper bound); "
-        f"launches {serve_launches}")
-    for name in ("fused_boundary", "uaq_dequantize"):
-        assert serve_launches.get(name, 0) > 0, f"serve never launched {name}"
-    assert 0.0 <= stats.exit_ratio <= 1.0 and stats.mean_bits > 0, stats
-    pr = stats.pipeline
-    assert math.isfinite(pr.mean_latency) and pr.throughput > 0
+    params = init_params(torch, M, cfg)
+    serve_launches, wall = serve_check(torch, "gemma2-2b", params)
+    add_launches(serve_launches)
 
     log("== phase 5: unfused hop and standalone probe on the same weights")
-    off = coach_offline(transformer_graph(cfg, batch=1, seq=128), JETSON_NX,
-                        A6000_SERVER, WIFI_5GHZ(50.0))
-    n_end = sum(1 for i in off.decision.end_set if 0 < i <= cfg.num_layers)
-    cut_group = min(max(1, round(n_end / cfg.group_size)),
-                    cfg.num_groups - 1)
-    rt = CollabRuntime(cfg, params, cut_group)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    centers = torch.randn((16, cfg.d_model), generator=gen, device="cuda")
-    with torch.no_grad():
-        mono = rt.monolithic(params, toks)
-        KB.LAUNCHES.clear()
-        logits4, pkts = rt.run(toks, bits=(4,))
-        logits8, _ = rt.run(toks, bits=(8,))
-        _, h = rt.end_step(toks, bits=8)
-        sep, best, sims = rt.probe(h, centers)
-        torch.cuda.synchronize()
-        second_launches = dict(KB.LAUNCHES)
-        psep, pbest, psims = ref.semantic_probe_ref(h, centers)
-    log(f"launches {second_launches}")
-    for name in ("uaq_quantize", "uaq_dequantize", "semantic_probe"):
-        assert second_launches.get(name, 0) > 0, \
-            f"second phase never launched {name}"
-    assert logits4.shape == (1, cfg.vocab_size), logits4.shape
-    for lg in (mono, logits4, logits8):
-        assert bool(torch.isfinite(lg).all()), "non-finite logits"
-    r4, r8 = rel_err(torch, logits4, mono), rel_err(torch, logits8, mono)
-    log(f"cut_group={cut_group} split vs monolithic rel err: "
-        f"4b {r4:.4g} (< 0.25), 8b {r8:.4g} (< 0.02); wire bytes "
-        f"{pkts[0].wire_bytes} vs fp32 {8 * cfg.d_model * 4}")
-    assert r8 < 0.02 and r4 < 0.25, (r4, r8)
-    assert close(sims, psims, **TOL) and close(sep, psep, **TOL)
-    check_best(torch, best, pbest, psims, "probe")
-    # one steady request on the serve path: fused end step + cloud step
-    def request():
-        pkt, _ = rt.end_step_fused(toks, centers)
-        return rt.cloud_step(pkt)
+    second_launches, req_ms, busy_ms = runtime_check(torch, cfg, params,
+                                                     SPLIT_BOUND)
+    add_launches(second_launches)
+    results["gemma2-2b"] = {"serve_wall_s": wall, "request_ms": req_ms,
+                            "request_device_busy_ms": busy_ms}
 
-    with torch.no_grad():
-        for _ in range(3):
-            request()
-        torch.cuda.synchronize()
-        per = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            request()
-            torch.cuda.synchronize()
-            per.append(time.perf_counter() - t0)
-    req_ms = statistics.median(per) * 1e3
-    log(f"steady request (end segment + fused boundary + dequantize + "
-        f"cloud segment + head): {req_ms:.2f} ms median of 10")
-    busy_ms = profile_requests(torch, request, 3)
+    for phase, name, cfg in (
+            (6, "mamba2-130m", get_config("mamba2-130m")),
+            (7, "mixtral-8x7b", dataclasses.replace(
+                get_config("mixtral-8x7b"), num_layers=4))):
+        log(f"== phase {phase}: serve 24 requests, the unfused hop and the "
+            f"probe on full-width {name} ({cfg.num_layers} layers)")
+        params = None  # the previous phase's weights go first
+        torch.cuda.empty_cache()
+        params = init_params(torch, M, cfg)
+        lw, wall = serve_check(torch, name, params)
+        add_launches(lw)
+        lr, req_ms, busy_ms = runtime_check(torch, cfg, params,
+                                            SPLIT_BOUND_SCALED)
+        add_launches(lr)
+        results[name] = {"layers": cfg.num_layers, "serve_wall_s": wall,
+                         "request_ms": req_ms,
+                         "request_device_busy_ms": busy_ms}
+
+    log("== phase 8: greedy generation, 32 tokens after 64")
+    # phase 7's mixtral weights first (dropless, as tests/test_decode.py
+    # runs MoE decode), then the other two from their phases' seed
+    for name, gcfg in (
+            ("mixtral-8x7b", dataclasses.replace(cfg, capacity_factor=100.0)),
+            ("gemma2-2b", get_config("gemma2-2b")),
+            ("mamba2-130m", get_config("mamba2-130m"))):
+        log(f"  {name} ({gcfg.num_layers} layers)")
+        if params is None:
+            params = init_params(torch, M, gcfg)
+        ms, bound, every = generation_check(torch, gcfg, params)
+        results[name].update(decode_ms_per_token=ms, decode_bound_ms=bound,
+                             decode_all_weights_ms=every)
+        params = None
+        torch.cuda.empty_cache()
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \
         "the port imported JAX or the JAX package"
@@ -508,8 +729,6 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    launches = {**serve_launches, **{k: v for k, v in second_launches.items()
-                                     if k not in serve_launches}}
     kernels = []
     for name in REPLACES:
         s = t_serve[name]
@@ -526,9 +745,10 @@ def main() -> int:
             "large": dict(t_large[name], shape=list(LARGE_SHAPE), bits=8),
             "large_int4": dict(t_large4[name], shape=list(LARGE_SHAPE),
                                bits=4),
+            **{f"d{D}": dict(t[name], shape=[1, 8, D, 16], bits=8)
+               for D, t in t_width.items()},
         })
-    log(f"request_ms={req_ms:.4f} request_device_busy_ms={busy_ms} "
-        f"serve_wall_s={wall:.4f}")
+    log(json.dumps({"phases": results}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

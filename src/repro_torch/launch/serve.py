@@ -11,6 +11,7 @@ plain PyTorch versions of the kernels on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,13 +37,17 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 200,
           seed: int = 0, verbose: bool = True, device="cuda", params=None):
     """``params`` (the port's parameter dict on ``device``, e.g. from
     ``models.model.params_from_numpy``) replaces the seeded random
-    weights."""
+    weights; the model then runs at their depth (their group count times
+    the pattern's length), so a depth-cut model serves too."""
     dev = require_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
     if params is None:
         params = M.init_params(cfg, seed=seed, device=dev)
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=cfg.group_size
+                                  * M.group_count(params["groups"]))
 
     # ---- offline component: partition + precision on the cost graph
     graph = transformer_graph(cfg, batch=1, seq=128)

@@ -1,7 +1,6 @@
-"""Core NN layers in PyTorch, mirroring ``repro.models.layers`` (the
-full-sequence part): RMSNorm, rotary embeddings (incl. M-RoPE), GQA
-attention (global / sliding-window / chunked, logit softcap, qk-norm) and
-gated MLPs.
+"""Core NN layers in PyTorch, mirroring ``repro.models.layers``: RMSNorm,
+rotary embeddings (incl. M-RoPE), GQA attention (global / sliding-window /
+chunked, logit softcap, qk-norm) with its KV-cache decode, and gated MLPs.
 
 Plain tensor ops on explicit parameter dicts.  Attention is written out
 (matmuls, fp32 softmax, a ``-1e30`` mask) as in the JAX package, not a
@@ -24,7 +23,7 @@ Q_CHUNK = 1024
 
 
 # --------------------------------------------------------------------------- norm
-def init_rmsnorm(d: int, dtype=torch.float32, device="cpu", lead=()):
+def init_rmsnorm(d: int, dtype, device, lead=()):
     return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
                                 device=device)}
 
@@ -77,8 +76,8 @@ def apply_rope(x, cos, sin):
 
 
 # ----------------------------------------------------------------------- attention
-def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   dtype=torch.float32, device="cpu", lead=()):
+def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
+                   lead=()):
     """``lead`` prepends stacking dims (the group axis of a stacked
     parameter tree)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -181,9 +180,76 @@ def attention_full(params, x, cfg: ModelConfig, spec: LayerSpec,
     return out @ params["wo"], (k, v)
 
 
+# ------------------------------------------------------------------ KV cache utils
+def cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
+    if spec.attn_kind == "local":
+        return min(max_seq, cfg.sliding_window)
+    if spec.attn_kind == "chunked":
+        return min(max_seq, cfg.attn_chunk)
+    return max_seq
+
+
+def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                  max_seq: int, dtype, device):
+    L = cache_len(cfg, spec, max_seq)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
+        # absolute position held by each slot; -1 => empty
+        "pos": torch.full((L,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def prefill_to_cache(cfg, spec, k, v, max_seq: int):
+    """Convert full-sequence rope'd k/v (B,S,KV,hd) into a decode cache of
+    length ``cache_len`` (ring layout: slot = pos % L)."""
+    B, S, KV, hd = k.shape
+    L = cache_len(cfg, spec, max_seq)
+    dev = k.device
+    if L == max_seq and S <= L:
+        pad = L - S
+        kc = F.pad(k, (0, 0, 0, 0, 0, pad))
+        vc = F.pad(v, (0, 0, 0, 0, 0, pad))
+        pos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                         torch.full((pad,), -1, dtype=torch.int32,
+                                    device=dev)])
+        return {"k": kc, "v": vc, "pos": pos}
+    # keep last L positions, ring-ordered
+    start = S - L
+    ppos = start + torch.arange(L, dtype=torch.int32, device=dev)
+    slots = (ppos % L).long()
+    kc = torch.zeros((B, L, KV, hd), dtype=k.dtype, device=dev)
+    vc = torch.zeros((B, L, KV, hd), dtype=v.dtype, device=dev)
+    kc[:, slots] = k[:, start:]
+    vc[:, slots] = v[:, start:]
+    pos = torch.zeros((L,), dtype=torch.int32, device=dev)
+    pos[slots] = ppos
+    return {"k": kc, "v": vc, "pos": pos}
+
+
+def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
+                     spec: LayerSpec):
+    """One-token decode.  x: (B,1,D); pos: the position of x (an int).
+    Returns the output and a new cache; ``cache`` itself is not changed."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions)  # (B,1,·,hd), rope'd at abs pos
+    L = cache["k"].shape[1]
+    slot = pos % L
+    kc, vc, cpos = cache["k"].clone(), cache["v"].clone(), \
+        cache["pos"].clone()
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+    cpos[slot] = pos
+    mask = _scores_mask(positions[0], cpos, cfg, spec, causal=True)  # (1,L)
+    out = _attend(q, kc, vc, mask, cfg)
+    return out @ params["wo"], {"k": kc, "v": vc, "pos": cpos}
+
+
 # --------------------------------------------------------------------------- MLP
-def init_mlp(d: int, f: int, gen: torch.Generator, dtype=torch.float32,
-             device="cpu", lead=()):
+def init_mlp(d: int, f: int, gen: torch.Generator, dtype, device,
+             lead=()):
     s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
 
     def normal(*shape):
@@ -197,8 +263,11 @@ def init_mlp(d: int, f: int, gen: torch.Generator, dtype=torch.float32,
     }
 
 
-def mlp(params, x, act: str = "silu"):
+def activation(x, act: str):
     # jax.nn.gelu defaults to the tanh approximation
-    a = F.silu(x @ params["w_gate"]) if act == "silu" \
-        else F.gelu(x @ params["w_gate"], approximate="tanh")
-    return (a * (x @ params["w_up"])) @ params["w_down"]
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp(params, x, act: str = "silu"):
+    return (activation(x @ params["w_gate"], act) * (x @ params["w_up"])) \
+        @ params["w_down"]

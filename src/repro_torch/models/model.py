@@ -1,36 +1,32 @@
-"""Unified model in PyTorch, mirroring ``repro.models.model`` (the
-full-sequence forward of attention architectures): embedding -> layer
-groups -> norm -> lm head.
+"""Unified model in PyTorch, mirroring ``repro.models.model``: embedding ->
+layer groups -> norm -> lm head, for every mixer of the registry
+(attention, Mamba2/SSD) and every FFN (gated MLP, MoE).  Entry points:
+
+  forward(params, cfg, inputs)                 -> h, cache_or_None, aux
+  prefill(params, cfg, inputs, max_seq)        -> logits_last, cache
+  decode_step(params, cfg, cache, token, pos)  -> logits, cache
 
 Parameters are a plain dict that mirrors the JAX package's pytree:
 ``params["groups"]`` is a tuple (one entry per position in
 ``cfg.pattern``) of dicts whose leaves are stacked over
-``cfg.num_groups``.  The JAX package's ``lax.scan`` over groups is a
-Python loop over that stacked axis here.  ``params_from_numpy`` converts a
-JAX parameter tree (with numpy leaves) so both packages compute the same
-function.
-
-Mamba and MoE layers are not ported yet (ROADMAP queue 1 item 10).
+``cfg.num_groups``; decode caches have the same layout.  The JAX
+package's ``lax.scan`` over groups is a Python loop over that stacked
+axis here.  ``params_from_numpy`` converts a JAX parameter tree (with
+numpy leaves) so both packages compute the same function.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import require_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
-
-
-def _attention_only(cfg: ModelConfig) -> None:
-    for spec in cfg.pattern:
-        if spec.mixer != "attn" or spec.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: {spec} is not ported yet (mamba and MoE "
-                f"layers are ROADMAP queue 1 item 10)")
 
 
 # ------------------------------------------------------------------------ init
@@ -39,7 +35,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the numbers differ from ``jax.random``'s; use
     ``params_from_numpy`` to run the JAX package's weights)."""
-    _attention_only(cfg)
     dev = require_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     G = (cfg.num_groups,)
@@ -49,16 +44,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                                        generator=gen, device=dev)
                            * 0.02).to(dtype)
 
-    def block():
+    def block(spec: LayerSpec):
         p: Dict[str, Any] = {
-            "norm1": L.init_rmsnorm(cfg.d_model, dtype, dev, G),
-            "attn": L.init_attention(cfg, gen, dtype, dev, G)}
+            "norm1": L.init_rmsnorm(cfg.d_model, dtype, dev, G)}
+        if spec.mixer == "attn":
+            p["attn"] = L.init_attention(cfg, gen, dtype, dev, G)
+        else:
+            p["mamba"] = SSM.init_mamba(cfg, gen, dtype, dev, G)
         if cfg.d_ff > 0:
             p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, dev, G)
-            p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, gen, dtype, dev, G)
+            if spec.moe:
+                p["moe"] = MOE.init_moe(cfg, gen, dtype, dev, G)
+            else:
+                p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, gen, dtype,
+                                      dev, G)
         return p
 
-    params["groups"] = tuple(block() for _ in cfg.pattern)
+    params["groups"] = tuple(block(spec) for spec in cfg.pattern)
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, dtype, dev)
     if cfg.embed_inputs or not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
@@ -71,7 +73,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The JAX package's ``init_params`` tree with numpy leaves
     (``jax.tree.map(np.asarray, params)``) -> the port's parameter dict on
     ``device``, leaf for leaf."""
-    _attention_only(cfg)
     dev = require_device(device)
 
     def conv(t):
@@ -102,26 +103,85 @@ def group_slice(tree, idx):
     return tree[idx]
 
 
+def _stack(trees):
+    """Per-group trees (same structure) -> one tree with leaves stacked on
+    a new group axis 0."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _stack([x[k] for x in trees]) for k in t}
+    return torch.stack(trees)
+
+
+def group_count(groups) -> int:
+    """How many groups a stacked ``params["groups"]`` tree holds."""
+    return groups[0]["norm1"]["scale"].shape[0]
+
+
 # --------------------------------------------------------------------- block fwd
-def _block_full(p, h, cfg: ModelConfig, spec: LayerSpec, positions):
-    """Full-sequence attention block: h -> h."""
+def _block_full(p, h, cfg: ModelConfig, spec: LayerSpec, positions,
+                want_cache: bool, max_seq: int):
+    """Full-sequence block. Returns (h, cache_or_None, MoE aux or None)."""
+    aux = None
     x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
-    y, _ = L.attention_full(p["attn"], x, cfg, spec, positions)
+    cache = None
+    if spec.mixer == "attn":
+        y, (k, v) = L.attention_full(p["attn"], x, cfg, spec, positions)
+        if want_cache:
+            cache = L.prefill_to_cache(cfg, spec, k, v, max_seq)
+    elif want_cache:
+        y, cache = SSM.mamba_forward(p["mamba"], x, cfg, return_cache=True)
+    else:
+        y = SSM.mamba_forward(p["mamba"], x, cfg)
     h = h + y
     if cfg.d_ff > 0:
         x = L.rms_norm(h, p["norm2"], cfg.norm_eps)
-        h = h + L.mlp(p["mlp"], x, cfg.mlp_act)
-    return h
+        if spec.moe:
+            y, aux = MOE.moe_ffn(p["moe"], x, cfg)
+        else:
+            y = L.mlp(p["mlp"], x, cfg.mlp_act)
+        h = h + y
+    return h, cache, aux
+
+
+def _block_decode(p, h, cache, pos: int, cfg: ModelConfig, spec: LayerSpec):
+    x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        y, cache = L.attention_decode(p["attn"], x, cache, pos, cfg, spec)
+    else:
+        y, cache = SSM.mamba_decode(p["mamba"], x, cache, cfg)
+    h = h + y
+    if cfg.d_ff > 0:
+        x = L.rms_norm(h, p["norm2"], cfg.norm_eps)
+        if spec.moe:
+            # (B,1,D): each decode token is its own dispatch group
+            y, _ = MOE.moe_ffn(p["moe"], x, cfg)
+        else:
+            y = L.mlp(p["mlp"], x, cfg.mlp_act)
+        h = h + y
+    return h, cache
+
+
+def _groups_full(groups, h, cfg: ModelConfig, positions,
+                 want_cache: bool = False, max_seq: int = 0):
+    """Apply a stack of layer groups (leaves stacked on axis 0) to h.
+    Returns (h, cache or None, MoE aux summed over the layers)."""
+    caches = [[] for _ in cfg.pattern]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g in range(group_count(groups)):
+        gp = group_slice(groups, g)
+        for i, spec in enumerate(cfg.pattern):
+            h, c, a = _block_full(gp[i], h, cfg, spec, positions,
+                                  want_cache, max_seq)
+            caches[i].append(c)
+            if a is not None:
+                aux = aux + a
+    cache = tuple(_stack(c) for c in caches) if want_cache else None
+    return h, cache, aux
 
 
 def run_groups(groups, h, cfg: ModelConfig, positions):
     """Apply a stack of layer groups (leaves stacked on axis 0) to h."""
-    n = groups[0]["norm1"]["scale"].shape[0]
-    for g in range(n):
-        gp = group_slice(groups, g)
-        for i, spec in enumerate(cfg.pattern):
-            h = _block_full(gp[i], h, cfg, spec, positions)
-    return h
+    return _groups_full(groups, h, cfg, positions)[0]
 
 
 # ------------------------------------------------------------------- embeddings
@@ -154,13 +214,54 @@ def positions_for(B: int, S: int, device) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ full forward
-def forward(params, cfg: ModelConfig, inputs):
-    """Returns (h after the final norm, None, aux) like the JAX package's
-    ``forward`` without a cache; ``aux`` (the MoE loss) is 0 here."""
-    _attention_only(cfg)
+def forward(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
+            max_seq: Optional[int] = None):
+    """Returns (h after the final norm, cache or None, aux): the cache
+    (``want_cache``) is laid out as ``init_cache``'s, and ``aux`` is the
+    MoE load-balance loss summed over the layers (0 without MoE)."""
     B, S = inputs.shape[0], inputs.shape[1]
     h = _embed(params, cfg, inputs)
-    h = run_groups(params["groups"], h, cfg,
-                   positions_for(B, S, h.device))
+    h, cache, aux = _groups_full(params["groups"], h, cfg,
+                                 positions_for(B, S, h.device), want_cache,
+                                 max_seq or S)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, cache, aux
+
+
+def prefill(params, cfg: ModelConfig, inputs, max_seq: int):
+    """Returns (last-position logits, cache)."""
+    h, cache, _ = forward(params, cfg, inputs, want_cache=True,
+                          max_seq=max_seq)
+    return _lm_head(params, cfg, h[:, -1]), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.float32, device="cuda"):
+    """Empty decode cache, structure matching prefill output: a tuple (per
+    pattern position) of trees with leaves stacked over groups."""
+    dev = require_device(device)
+
+    def one(spec: LayerSpec):
+        if spec.mixer == "attn":
+            c = L.init_kv_cache(cfg, spec, batch, max_seq, dtype, dev)
+        else:
+            c = SSM.init_mamba_cache(cfg, batch, dtype, dev)
+        return _stack([c] * cfg.num_groups)
+
+    return tuple(one(spec) for spec in cfg.pattern)
+
+
+def decode_step(params, cfg: ModelConfig, cache, inputs, pos: int):
+    """inputs: (B,1) tokens or (B,1,D) embeds; pos: the position of the
+    input (an int).  Returns (logits (B,V), new cache); ``cache`` itself
+    is not changed."""
+    h = _embed(params, cfg, inputs)
+    groups = params["groups"]
+    new = [[] for _ in cfg.pattern]
+    for g in range(group_count(groups)):
+        gp, gc = group_slice(groups, g), group_slice(cache, g)
+        for i, spec in enumerate(cfg.pattern):
+            h, c = _block_decode(gp[i], h, gc[i], pos, cfg, spec)
+            new[i].append(c)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _lm_head(params, cfg, h[:, 0]), tuple(_stack(c) for c in new)

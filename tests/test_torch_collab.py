@@ -175,3 +175,55 @@ def test_same_weights_same_logits_and_probe_across_packages(rt, bits):
         _np(r.monolithic(params, torch.from_numpy(toks))),
         np.asarray(jr.monolithic(jax.tree.map(jnp.asarray, jp),
                                  jnp.asarray(toks))), **TOL)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("mamba2-130m", {}), ("mixtral-8x7b", {}),
+    ("jamba-1.5-large-398b", {"num_layers": 16})])
+def test_fused_hop_on_mamba_moe_and_hybrid_boundaries_matches_jax(arch,
+                                                                  over):
+    """Mamba, MoE and hybrid (two jamba groups) boundaries through the
+    fused end hop.  On the same boundary activation the port's fused pass
+    writes the JAX package's wire fields bit for bit; the port's own end
+    segment gives the probe within ``TOL`` and a hop within a quantum;
+    the cloud segment on the same packet and the monolithic forward agree
+    within ``TOL``."""
+    from repro.kernels import ops as JOPS
+    from repro_torch.kernels import ops as KOPS
+    cfg = get_config(arch).reduced(**over)
+    assert cfg.num_groups == 2
+    jp = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
+    params = M.params_from_numpy(jp, cfg, "cpu")
+    r = CollabRuntime(cfg, params, cut_group=1)
+    jr = JRuntime(cfg, jax.tree.map(jnp.asarray, jp), cut_group=1)
+    toks = _tokens(cfg, (2, 8), 12)
+    centers = _centers(cfg, 5, 13)
+    for bits in (4, 8):
+        pkt, probe = r.end_step_fused(torch.from_numpy(toks),
+                                      torch.from_numpy(centers), bits=bits)
+        jpkt, jprobe = jr.end_step_fused(jnp.asarray(toks),
+                                         jnp.asarray(centers), bits=bits)
+        _, jh = jr.end_step(jnp.asarray(toks), bits=bits)
+        wire = KOPS.boundary_pass(torch.from_numpy(np.array(jh)),
+                                  torch.from_numpy(centers), bits)
+        jwire = JOPS.boundary_pass(jh, jnp.asarray(centers), bits)
+        for g, w in zip(wire[:3], (jpkt.payload, jpkt.scale, jpkt.zp)):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+        for g, w in zip(wire[3:], jwire[3:]):
+            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+        np.testing.assert_array_equal(_np(probe.best),
+                                      np.asarray(jprobe.best))
+        for g, w in ((probe.sims, jprobe.sims), (probe.sep, jprobe.sep),
+                     (probe.feat, jprobe.feat)):
+            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+        deq, jdeq = _np(pkt.dequantize()), np.asarray(jpkt.dequantize())
+        assert (np.abs(deq - jdeq) <= np.asarray(jpkt.scale) * 1.001).all()
+        same = WirePacket(*(torch.from_numpy(np.array(a)) for a in
+                            (jpkt.payload, jpkt.scale, jpkt.zp)), bits,
+                          channels=jpkt.channels)
+        np.testing.assert_allclose(_np(r.cloud_step(same)),
+                                   np.asarray(jr.cloud_step(jpkt)), **TOL)
+    np.testing.assert_allclose(
+        _np(r.monolithic(params, torch.from_numpy(toks))),
+        np.asarray(jr.monolithic(jax.tree.map(jnp.asarray, jp),
+                                 jnp.asarray(toks))), **TOL)

@@ -10,7 +10,8 @@ machine that has the card but no JAX:
 
 Tolerances: wire fields bit for bit; probe fields ``PROBE_TOL`` (atol
 1e-5, rtol 1e-4: the kernel sums GAP and dot products in another order);
-model outputs ``TOL`` (rtol/atol 1e-4, fp32 matmuls on another device).
+model outputs ``TOL`` (rtol/atol 1e-4, fp32 matmuls on another device);
+greedy tokens equal except at near-ties of the logits within ``TOL``.
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS as ALL_ARCHS, get_config  # noqa: E402
 from repro_torch.core.collab import CollabRuntime  # noqa: E402
 from repro_torch.kernels import _build as KB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -26,6 +27,7 @@ from repro_torch.kernels.boundary import fused_boundary  # noqa: E402
 from repro_torch.kernels.semantic_cache import semantic_probe  # noqa: E402
 from repro_torch.kernels.uaq import uaq_dequantize, uaq_quantize  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving import generate  # noqa: E402
 
 PROBE_TOL = dict(atol=1e-5, rtol=1e-4)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -208,16 +210,28 @@ def test_graphs_captured_on_one_stream_keep_their_own_counters(cuda, probe):
                 assert torch.equal(g, w)
 
 
-def test_forward_and_runtime_on_card_match_cpu(cuda):
-    cfg = get_config("gemma2-2b").reduced()
+# every registered arch, reduced; jamba at 16 layers for two groups
+ARCHS = [(a, {"num_layers": 16} if a.startswith("jamba") else {})
+         for a in sorted(ALL_ARCHS)]
+
+
+@pytest.mark.parametrize("arch,over", ARCHS)
+def test_forward_and_runtime_on_card_match_cpu(cuda, arch, over):
+    cfg = get_config(arch).reduced(**over)
     params = M.init_params(cfg, seed=0, device="cpu")
     gparams = M.params_from_numpy(
         _as_numpy(params), cfg, cuda)
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (2, 96)).astype(np.int32))
-    h, _, _ = M.forward(params, cfg, toks)
-    hg, _, _ = M.forward(gparams, cfg, toks.to(cuda))
+    rng = np.random.default_rng(3)
+    if cfg.embed_inputs:
+        toks = torch.from_numpy((rng.standard_normal((2, 96, cfg.d_model))
+                                 * 0.5).astype(np.float32))
+    else:
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    h, _, aux = M.forward(params, cfg, toks)
+    hg, _, auxg = M.forward(gparams, cfg, toks.to(cuda))
     _near(hg, h, TOL)
+    _near(auxg, aux, TOL)
     rt = CollabRuntime(cfg, params, cut_group=1)
     grt = CollabRuntime(cfg, gparams, cut_group=1)
     x = toks[:, :8]
@@ -230,6 +244,33 @@ def test_forward_and_runtime_on_card_match_cpu(cuda):
     logits = grt.cloud_step(gpkt)
     assert logits.shape == (2, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_generate_on_card_matches_cpu_greedy(cuda, arch):
+    """Greedy tokens on the card equal the CPU's, except where the CPU's
+    top-2 logits are within ``TOL`` of each other at that step (a
+    near-tie either side may win); after the first such step the two
+    continuations may differ, so the comparison stops there."""
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=1, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    out = generate(params, cfg, prompt, 10, device="cpu")
+    gout = generate(gparams, cfg, prompt.to(cuda), 10).cpu()
+    assert gout.shape == out.shape == (2, 22)
+    h, _, _ = M.forward(params, cfg, out)
+    logits = M._lm_head(params, cfg, h)
+    for b in range(2):
+        for t in range(12, 22):
+            if gout[b, t] == out[b, t]:
+                continue
+            top2 = torch.topk(logits[b, t - 1], 2).values
+            gap = float(top2[0] - top2[1])
+            assert gap <= TOL["atol"] + TOL["rtol"] * float(top2[0].abs()), \
+                (arch, b, t, gap)
+            break
 
 
 def _as_numpy(tree):

@@ -1,6 +1,7 @@
 """The port's model (``repro_torch.models``) against the JAX package on
-the same weights: layers one by one, then the full-sequence forward and
-the head on reduced gemma2-2b and qwen3-14b.
+the same weights: layers one by one (MoE FFN included), then the
+full-sequence forward, the MoE aux loss and the head on reduced gemma2-2b,
+qwen3-14b, mamba2-130m, mixtral-8x7b, llama4-scout and jamba.
 
 Weights are the JAX package's ``init_params`` output converted with
 ``params_from_numpy``; other inputs come from numpy seeds.  Tolerance:
@@ -22,10 +23,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import moe as JMOE  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.config import LayerSpec, ModelConfig  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -191,8 +194,56 @@ def test_mlp_matches_jax(act):
     _close(L.mlp(tp, _t(x), act), JL.mlp(jp, jnp.asarray(x), act))
 
 
+@pytest.mark.parametrize("capacity_factor", [100.0, 0.25])
+def test_moe_ffn_matches_jax(capacity_factor):
+    """llama4's FFN (top-1 routing and the shared expert) and mixtral's
+    (top-2, no shared expert), dropless and with a capacity small enough
+    that tokens overflow into the sacrificial slot.  Overflow tokens all
+    write slot ``cap`` of the token map, and which write wins differs
+    between packages (and on CUDA between runs); the output does not
+    depend on it, so y and aux agree."""
+    for arch in ("llama4-scout-17b-a16e", "mixtral-8x7b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  capacity_factor=capacity_factor)
+        jp = _conv(JMOE.init_moe(cfg, jax.random.PRNGKey(18)))
+        tp = M.params_from_numpy(jp, cfg, "cpu")
+        assert ("shared" in tp) == cfg.shared_expert
+        x = _x((3, 32, cfg.d_model), 19, 1.0)
+        y, aux = MOE.moe_ffn(tp, _t(x), cfg)
+        jy, jaux = JMOE.moe_ffn(jp, jnp.asarray(x), cfg)
+        _close(y, jy)
+        _close(aux, jaux)
+        assert MOE.capacity(32, cfg) == JMOE.capacity(32, cfg)
+        # how many (token, choice) pairs each expert was given
+        probs = torch.softmax(_t(x) @ tp["router"], dim=-1)
+        ids = torch.sort(probs, dim=-1, descending=True, stable=True
+                         ).indices[..., :cfg.experts_per_token]
+        load = torch.nn.functional.one_hot(ids, cfg.num_experts).sum((1, 2))
+        overflow = bool((load > MOE.capacity(32, cfg)).any())
+        assert overflow == (capacity_factor < 1.0)
+
+
+def test_moe_top_k_takes_the_lower_index_on_ties():
+    """Equal router probabilities: jax.lax.top_k's order (lower expert
+    first) decides the slots, and the port follows it."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              capacity_factor=0.25)
+    jp = _conv(JMOE.init_moe(cfg, jax.random.PRNGKey(20)))
+    jp["router"] = np.zeros_like(jp["router"])  # every expert ties
+    tp = M.params_from_numpy(jp, cfg, "cpu")
+    x = _x((2, 16, cfg.d_model), 21, 1.0)
+    y, aux = MOE.moe_ffn(tp, _t(x), cfg)
+    jy, jaux = JMOE.moe_ffn(jp, jnp.asarray(x), cfg)
+    _close(y, jy)
+    _close(aux, jaux)
+
+
 # ------------------------------------------------------ full forward
-@pytest.fixture(scope="module", params=["gemma2-2b", "qwen3-14b"])
+ARCHS = ["gemma2-2b", "qwen3-14b", "mamba2-130m", "mixtral-8x7b",
+         "llama4-scout-17b-a16e", "jamba-1.5-large-398b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
 def converted(request):
     cfg = get_config(request.param).reduced()
     jp = _conv(JM.init_params(cfg, jax.random.PRNGKey(0)))
@@ -201,14 +252,17 @@ def converted(request):
 
 
 def test_forward_and_head_match_jax(converted):
-    """S = 96 > gemma2's reduced sliding window of 64, so its local
-    layers mask."""
+    """S = 96 > gemma2's and mixtral's reduced sliding window of 64, so
+    their local layers mask; mamba2's reduced SSD runs 6 chunks of 16; the
+    MoE archs' aux loss (summed over layers) matches too."""
     cfg, jp, tp = converted
     toks = np.random.default_rng(17).integers(
         0, cfg.vocab_size, (2, 96)).astype(np.int32)
     h, cache, aux = M.forward(tp, cfg, _t(toks))
-    jh, _, _ = JM.forward(jp, cfg, jnp.asarray(toks))
-    assert cache is None and float(aux) == 0.0
+    jh, _, jaux = JM.forward(jp, cfg, jnp.asarray(toks))
+    assert cache is None
+    assert (float(aux) != 0.0) == bool(cfg.num_experts)
+    _close(aux, jaux)
     _close(h, jh)
     _close(M._lm_head(tp, cfg, h[:, -1]), JM._lm_head(jp, cfg, jh[:, -1]))
 
@@ -222,18 +276,10 @@ def test_init_params_mirrors_the_jax_tree(converted):
     assert [str(k) for k, _ in jl] == [str(k) for k, _ in tl]
     assert [v.shape for _, v in jl] == [v.shape for _, v in tl]
     assert all(v.dtype == np.float32 for _, v in tl)
-    again = M.init_params(cfg, seed=3, device="cpu")
-    assert torch.equal(tp["groups"][0]["attn"]["wq"],
-                       again["groups"][0]["attn"]["wq"])
+    again = jax.tree.leaves(jax.tree.map(
+        lambda t: t.numpy(), M.init_params(cfg, seed=3, device="cpu")))
+    assert all(np.array_equal(a, b) for (_, a), b in zip(tl, again))
     assert M.param_count(tp) == JM.param_count(jp)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "mixtral-8x7b",
-                                  "jamba-1.5-large-398b"])
-def test_unported_mixers_raise(arch):
-    cfg = t_get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        M.init_params(cfg, device="cpu")
 
 
 def test_cuda_entry_points_raise_without_a_device(monkeypatch):

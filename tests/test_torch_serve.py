@@ -47,7 +47,8 @@ def _summary(text):
     return [ln for ln in text.splitlines() if "(wall" not in ln]
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-2b", "mamba2-130m",
+                                  "mixtral-8x7b", "llama4-scout-17b-a16e"])
 def test_serve_makes_the_reference_decisions(arch, monkeypatch, capsys):
     cfg = get_config(arch).reduced()
     jp = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
@@ -77,6 +78,22 @@ def test_serve_makes_the_reference_decisions(arch, monkeypatch, capsys):
     assert got.wire_kb_per_task == want.wire_kb_per_task
     assert [t.early_exit for t in got.pipeline.tasks] == \
         [t.early_exit for t in want.pipeline.tasks]
+
+
+def test_serve_keeps_the_reference_clamp_on_one_group_jamba():
+    """Reduced jamba has one group: serve's clamp gives cut 0, which
+    ``split_params_multi`` refuses, as the JAX package's does."""
+    with pytest.raises(AssertionError, match=r"\[0\]"):
+        T.serve("jamba-1.5-large-398b", requests=2, device="cpu")
+
+
+def test_serve_runs_at_the_depth_of_the_given_weights(capsys):
+    """Weights of a depth-cut model (3 gemma2 groups instead of the
+    reduced config's 2) serve at their own depth."""
+    cfg = get_config("gemma2-2b").reduced(num_layers=6)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    T.serve("gemma2-2b", requests=2, device="cpu", params=params)
+    assert "/3 " in capsys.readouterr().out.splitlines()[0]
 
 
 def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
