@@ -34,9 +34,20 @@ Phases (any failure exits non-zero before the last line):
      mixtral (dropless), full-width gemma2-2b and mamba2-130m: every token
      the forward's argmax (or a near-tie), decode ms/token beside the
      weight-bytes bound;
+  9. the three-tier end -> edge -> cloud path of ``examples/edge_tier.py``
+     on full-width mamba2-130m (the planner's cuts 3 and 12 of 24 groups,
+     4-bit hops): sync and async engines whose ``classify`` runs
+     ``rt.run`` (quantize and dequantize kernels at every hop), the
+     executor running the runtime's fused segment handles (fused boundary
+     kernel) and two tenants under wdrr, 24 requests each, with equal
+     decisions across engines and against each tenant's solo run; every
+     hop bit-equal to the plain versions, the (8, 8)-bit split within
+     0.05 of the monolithic forward, and one steady request timed and
+     profiled; then the engines on full-width gemma2-2b at its 6-bit plan
+     (no kernel there: 6-bit hops run the plain versions);
   then print each phase's numbers, the card's name and power limit, the
-  kernels' JSON line (launches summed over phases 4-7's main-path runs),
-  and the contract line.
+  kernels' JSON line (launches summed over phases 4-7's and 9's main-path
+  runs), and the contract line.
 
 Exits with code 2 and prints no result when CUDA is not available or
 ``src/repro_torch`` is not beside this script.
@@ -95,6 +106,9 @@ SOURCES = {  # where each kernel's device code is
     "semantic_probe": f"{CSRC}/row_pass.cuh",
 }
 KERNEL_NAME = re.compile(r"[A-Za-z_]\w*_kernel")  # in a demangled name
+# the three-tier split at (8, 8) bits: max|d| / max|ref| against the
+# monolithic forward, the bound and measure of tests/test_multihop.py:78
+THREE_TIER_BOUND = 0.05
 REPLACES = {
     "fused_boundary": "src/repro/kernels/boundary.py:119",
     "uaq_dequantize": "src/repro/kernels/uaq.py:109",
@@ -105,6 +119,21 @@ REPLACES = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def group_cuts_from_frontiers(decision, cfg):
+    """Map the layer-level multi-cut onto strictly increasing group
+    boundaries of the stacked parameters (embed node is id 0); the
+    mapping of ``examples/edge_tier.py``, which imports JAX."""
+    cuts = []
+    lo = 1
+    for k, frontier in enumerate(decision.cuts):
+        n_layers = sum(1 for i in frontier if 0 < i <= cfg.num_layers)
+        hi = cfg.num_groups - (decision.n_hops - k)
+        cut = min(max(lo, round(n_layers / cfg.group_size)), hi)
+        cuts.append(cut)
+        lo = cut + 1
+    return tuple(cuts)
 
 
 def close(a, b, atol, rtol):
@@ -366,20 +395,21 @@ def device_profile(torch, fn, n):
 
 def profile_requests(torch, request, n):
     """Device busy time per request and the top kernels by device time.
-    Returns the busy ms per request, or None when the profiler saw no
-    device time."""
+    Returns (busy ms per request, idle share, kernel launches per
+    request), or Nones when the profiler saw no device time."""
     rows, wall = device_profile(torch, request, n)
     busy = sum(r[2] for r in rows)
     if busy <= 0:
         log("profile: no device time recorded (not measured)")
-        return None
+        return None, None, None
+    launches = sum(r[1] for r in rows)
     log(f"profile ({n} requests, profiler on): device busy {busy:.3f} "
         f"ms/request of {wall:.3f} ms wall (idle share "
-        f"{1 - busy / wall:.3f}); {sum(r[1] for r in rows):.0f} kernel "
+        f"{1 - busy / wall:.3f}); {launches:.0f} kernel "
         f"launches/request")
     for name, count, ms in rows[:8]:
         log(f"  {ms:8.3f} ms/request  x{count:6.1f}  {name[:90]}")
-    return round(busy, 4)
+    return round(busy, 4), round(1 - busy / wall, 4), round(launches, 1)
 
 
 def rel_err(torch, a, b):
@@ -491,46 +521,65 @@ def runtime_check(torch, cfg, params, bounds):
     req_ms = statistics.median(per) * 1e3
     log(f"steady request (end segment + fused boundary + dequantize + "
         f"cloud segment + head): {req_ms:.2f} ms median of 10")
-    return launches, req_ms, profile_requests(torch, request, 3)
+    return launches, req_ms, profile_requests(torch, request, 3)[0]
 
 
-def check_hop(torch, rt, toks, mono):
-    """The hop's packet and dequantized values bit-equal to the plain
-    versions on the same boundary activation (so the kernels add nothing
-    to the split's error), every dequantized value within half a quantum
-    of the activation, and the logits' response to Gaussian noise of the
-    same per-token norm at the boundary, for comparison with the split's
-    error."""
+def boundary_activation(rt, toks, hop):
+    """The activation ``rt`` sends over ``hop``, with every hop before it
+    lossless."""
+    h = rt._seg_fns[0](rt.p_segments[0], toks)
+    for k in range(1, hop + 1):
+        h = rt._seg_fns[k](rt.p_segments[k], h)
+    return h
+
+
+def continue_from(rt, hop, h):
+    """The logits of ``rt``'s segments after ``hop`` on the activation
+    ``h``, with no quantization on the way."""
+    for k in range(hop + 1, rt.n_segments):
+        h = rt._seg_fns[k](rt.p_segments[k], h)
+    return h
+
+
+def check_hop(torch, rt, toks, mono, hop=0):
+    """The packet of ``hop`` and its dequantized values bit-equal to the
+    plain versions on the same boundary activation (so the kernels add
+    nothing to the split's error), every dequantized value within half a
+    quantum of the activation, and the logits' response to Gaussian noise
+    of the same per-token norm at the boundary, for comparison with the
+    split's error (the other hops lossless)."""
     from repro_torch.kernels import ref
     D = rt.cfg.d_model
     with torch.no_grad():
+        h = boundary_activation(rt, toks, hop)
         for bits in (4, 8):
-            pkt, h = rt.end_step(toks, bits=bits)
+            pkt = rt._quantize(h, hop, bits)
             deq = pkt.dequantize()
             want = ref.uaq_quantize_ref(h.reshape(-1, D), bits)
             for g, w in zip((pkt.payload, pkt.scale, pkt.zp), want):
                 assert torch.equal(g.reshape(w.shape), w), \
-                    f"{bits}b hop differs from the plain quantize"
+                    f"hop {hop} {bits}b differs from the plain quantize"
             assert torch.equal(deq, ref.uaq_dequantize_ref(
                 *want, bits, n=D).reshape(h.shape)), \
-                f"{bits}b hop differs from the plain dequantize"
+                f"hop {hop} {bits}b differs from the plain dequantize"
             err = deq - h
             half = pkt.scale * (0.5 + 1e-5) + 1e-6
             assert bool((err.abs() <= half).all()), \
-                f"{bits}b: a dequantized value is off by over half a quantum"
+                f"hop {hop} {bits}b: a dequantized value is off by over " \
+                f"half a quantum"
             q = rel_err(torch, deq, h)
-            gen = torch.Generator(device="cuda").manual_seed(bits)
+            gen = torch.Generator(device=h.device).manual_seed(bits)
             noisy = []
             for _ in range(3):
-                n = torch.randn(h.shape, generator=gen, device="cuda")
+                n = torch.randn(h.shape, generator=gen, device=h.device)
                 n = n * err.norm(dim=-1, keepdim=True) \
                     / n.norm(dim=-1, keepdim=True)
-                noisy.append(rel_err(torch, rt._cloud_fn(rt.p_cloud, h + n),
+                noisy.append(rel_err(torch, continue_from(rt, hop, h + n),
                                      mono))
-            split = rel_err(torch, rt.cloud_step(pkt), mono)
-            log(f"  {bits}b hop == plain versions; boundary rel err {q:.4g} "
-                f"(each value within half a quantum); logits rel err: "
-                f"split {split:.4g} (gain {split / q:.3g}), equal-norm "
+            split = rel_err(torch, continue_from(rt, hop, deq), mono)
+            log(f"  hop {hop} {bits}b == plain versions; boundary rel err "
+                f"{q:.4g} (each value within half a quantum); logits rel "
+                f"err: split {split:.4g} (gain {split / q:.3g}), equal-norm "
                 f"Gaussian noise {', '.join(f'{x:.4g}' for x in noisy)}")
 
 
@@ -608,6 +657,229 @@ def generation_check(torch, cfg, params, prompt_len=64, new=32):
         f"(all weights {every:.3f} ms); decode vs forward logits rel err "
         f"{rel:.3g} (< 1e-3)")
     return ms, bound, every
+
+
+# ------------------------------------------------------------ phase 9
+def three_tier_runs(torch, cfg, params, device="cuda", executor=True):
+    """The three-tier main path of ``examples/edge_tier.py`` on ``params``,
+    24 requests a run, with the deployment planned by the port (Jetson NX
+    end, AGX Orin edge and A6000 cloud over 50 Mbps WiFi and the LAN
+    backhaul): (a) the sync and async engines, each with ``classify`` through
+    ``rt.run`` (the quantize kernel at both senders, the dequantize kernel
+    at both receivers); with ``executor``, (b) ``AsyncHopPipeline`` running
+    the runtime's fused segment handles (the fused boundary kernel at both
+    intermediate segments, probes delivered through ``on_probe``) and (c)
+    two tenants under wdrr, then each alone.  The launch counts are set to
+    0 just before and read just after these runs; every check that
+    launches kernels comes after.  Returns a dict of the runs' results."""
+    import numpy as np
+    from repro_torch.core.collab import CollabRuntime
+    from repro_torch.core.costs import (A6000_SERVER, EDGE_AGX_ORIN, ETH_LAN,
+                                        JETSON_NX, WIFI_5GHZ,
+                                        transformer_graph)
+    from repro_torch.core.partitioner import coach_offline_multihop
+    from repro_torch.core.pipeline import TaskPlan
+    from repro_torch.data.pipeline import (CorrelatedTaskStream,
+                                           make_hop_calibration_sets)
+    from repro_torch.kernels import _build as KB
+    from repro_torch.serving import (AsyncCoachEngine, AsyncHopPipeline,
+                                     CoachEngine, MultiTenantCoachEngine,
+                                     TenantSpec, VirtualClock)
+    devices = (JETSON_NX, EDGE_AGX_ORIN, A6000_SERVER)
+    links = (WIFI_5GHZ(50.0), ETH_LAN())
+    off = coach_offline_multihop(transformer_graph(cfg, batch=1, seq=128),
+                                 devices, links)
+    cuts = group_cuts_from_frontiers(off.decision, cfg)
+    hop_bits = [int(np.mean(list(b.values()))) if b else 8
+                for b in off.decision.all_hop_bits]
+    log(f"plan: cuts {cuts} of {cfg.num_groups} groups, hop bits {hop_bits}, "
+        f"max stage {off.times.max_stage * 1e3:.3f} ms (planner's profiles)")
+    rt = CollabRuntime(cfg, params, cuts, default_bits=hop_bits)
+    stream = CorrelatedTaskStream(n_labels=16, dim=cfg.d_model,
+                                  correlation="medium", seed=0,
+                                  n_probe_depths=2, depth_decay=0.9)
+    calib = make_hop_calibration_sets(stream, n=300)
+    tasks = stream.tasks(24)
+    period = off.times.max_stage
+    eng_kw = dict(n_labels=16, calib_feats=calib[0][0],
+                  calib_labels=calib[0][1], boundary_elems=128 * cfg.d_model,
+                  links=list(links), hop_bits_offline=hop_bits,
+                  hop_calib=calib[1:2])
+
+    def tokens(task):
+        toks = (np.abs((task.features[:8] * 1000).astype(np.int64))
+                % cfg.vocab_size).astype(np.int32)
+        return torch.as_tensor(toks, device=device)[None]
+
+    def classify(task):
+        logits, _ = rt.run(tokens(task))
+        pred = int(torch.argmax(logits[0]).item()) % stream.n_labels
+        return task.hop_features, pred
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    out = {"rt": rt, "cuts": cuts, "hop_bits": hop_bits, "tasks": tasks,
+           "tokens": tokens, "walls": {}}
+    with torch.no_grad():
+        KB.LAUNCHES.clear()
+        for name, cls in (("sync", CoachEngine), ("async", AsyncCoachEngine)):
+            eng = cls(rt, off.times, devices[0], links[0], devices[-1],
+                      **eng_kw)
+            out[name], out["walls"][name] = timed(lambda: eng.run_stream(
+                list(tasks), arrival_period=period, classify=classify))
+        if executor:
+            gen = torch.Generator(device=device).manual_seed(9)
+            centers = [torch.randn((16, cfg.d_model), generator=gen,
+                                   device=device) for _ in range(rt.n_hops)]
+            probes, cur = {}, [None]
+            handles = [rt.segment_handle(
+                k, probe_centers=lambda k=k: centers[k],
+                on_probe=lambda k, pr: probes.__setitem__((cur[0], k), pr))
+                for k in range(rt.n_segments)]
+
+            def segment_fn(k, idx, payload):
+                cur[0] = idx
+                return handles[k](payload)
+
+            plans = [TaskPlan.multihop(off.times.compute, off.times.link)
+                     for _ in tasks]
+            pipe = AsyncHopPipeline(rt.n_hops, links=list(links),
+                                    clock=VirtualClock(),
+                                    segment_fn=segment_fn)
+            res, out["walls"]["executor"] = timed(lambda: pipe.run(
+                lambda i, _a: plans[i].as_sim_plan(rt.n_hops), len(tasks),
+                [i * period for i in range(len(tasks))],
+                payloads=[tokens(t) for t in tasks]))
+            out.update(executor=res, outputs=pipe.outputs, probes=probes,
+                       centers=centers)
+
+            half = len(tasks) // 2
+            specs = [TenantSpec("a", half, arrival_period=period, weight=2.0),
+                     TenantSpec("b", len(tasks) - half,
+                                arrival_period=1.5 * period, weight=1.0)]
+            split = [list(tasks[:half]), list(tasks[half:])]
+
+            def tenants(which):
+                eng = MultiTenantCoachEngine(
+                    rt, off.times, devices[0], links[0], devices[-1],
+                    tenants=[specs[t] for t in which], policy="wdrr",
+                    **eng_kw)
+                return eng.run_streams([split[t] for t in which], classify)
+
+            out["tenants"], out["walls"]["tenants"] = timed(
+                lambda: tenants((0, 1)))
+            out["solo"] = [tenants((t,)) for t in (0, 1)]
+        sync()
+        out["launches"] = dict(KB.LAUNCHES)
+    return out
+
+
+def decisions(stats):
+    return {"exit_ratio": stats.exit_ratio, "exit_hops": stats.exit_hops,
+            "mean_bits": stats.mean_bits, "accuracy": stats.accuracy}
+
+
+def three_tier_check(torch, cfg, params, device="cuda", executor=True):
+    """Phase 9 on one model: the runs of ``three_tier_runs``, then their
+    checks: sync and async decisions equal; each executor output equal to
+    ``rt.run``'s logits within 1e-5 and each probe delivery within TOL of
+    ``CollabRuntime.probe`` on the same activation; each tenant's
+    decisions equal to its solo run's; every hop bit-equal to the plain
+    versions and within half a quantum; the (8, 8)-bit split within
+    ``THREE_TIER_BOUND`` of the monolithic forward.  Returns (launches,
+    numbers for the phase's JSON)."""
+    r = three_tier_runs(torch, cfg, params, device, executor)
+    rt, walls = r["rt"], r["walls"]
+    s, a = decisions(r["sync"]), decisions(r["async"])
+    log(f"sync  {s}\nasync {a}")
+    assert s == a, "the async engine decided differently from the sync one"
+    result = {"cuts": list(r["cuts"]), "hop_bits": r["hop_bits"],
+              "decisions": {k: (dict(v) if isinstance(v, dict) else v)
+                            for k, v in s.items()},
+              "wall_s": walls}
+    with torch.no_grad():
+        if executor:
+            assert s["exit_hops"].get(1, 0) > 0, \
+                f"no task exited at the edge tier: {s['exit_hops']}"
+            assert not any(r["executor"].early_exit)
+            worst = 0.0
+            for i, task in enumerate(r["tasks"]):
+                toks = r["tokens"](task)
+                want, _ = rt.run(toks)
+                got = r["outputs"][i]
+                worst = max(worst, max_err(got, want))
+                assert close(got, want, 1e-5, 1e-5), \
+                    f"executor output {i} differs from rt.run: " \
+                    f"{max_err(got, want)}"
+                pkt, h = rt.segment_step(0, toks)
+                for k in range(rt.n_hops):
+                    if k:
+                        pkt, h = rt.segment_step(k, pkt)
+                    pr = r["probes"][(i, k)]
+                    sep, best, sims = rt.probe(h, r["centers"][k])
+                    assert close(pr.sims, sims, **TOL) and \
+                        close(pr.sep, sep, **TOL) and \
+                        close(pr.feat, h.mean(dim=1), **TOL), \
+                        f"probe of task {i} at hop {k} differs"
+                    check_best(torch, pr.best, best, sims, "on_probe")
+            log(f"executor: {len(r['outputs'])} outputs == rt.run (max abs "
+                f"err {worst:.3g}); {len(r['probes'])} probe deliveries == "
+                f"CollabRuntime.probe within TOL")
+            result["executor_max_abs_err"] = worst
+            for t, solo in enumerate(r["solo"]):
+                got = r["tenants"].reports[t].stats
+                want = solo.reports[0].stats
+                for f in ("exit_ratio", "mean_bits", "accuracy"):
+                    assert getattr(got, f) == getattr(want, f), \
+                        f"tenant {t} {f} differs from its solo run"
+                log(f"tenant {t}: {decisions(got)} == solo")
+        toks = r["tokens"](r["tasks"][0])
+        mono = rt.monolithic(params, toks)
+        for hop in range(rt.n_hops):
+            check_hop(torch, rt, toks, mono, hop)
+        ratios = {}
+        for bits in (8, rt.default_bits_per_hop[0]):
+            rb = type(rt)(cfg, params, r["cuts"],
+                          default_bits=(bits,) * rt.n_hops)
+            logits, _ = rb.run(toks)
+            assert bool(torch.isfinite(logits).all()), "non-finite logits"
+            ratios[bits] = float((logits - mono).abs().max()
+                                 / mono.abs().max())
+    log(f"split vs monolithic max|d|/max|ref|: "
+        + ", ".join(f"{b}b {v:.4g}" for b, v in sorted(ratios.items()))
+        + f" (8b < {THREE_TIER_BOUND})")
+    assert ratios[8] < THREE_TIER_BOUND, ratios
+    result["split_max_ratio"] = ratios
+    return r["launches"], result, rt, toks
+
+
+def time_request(torch, request):
+    """Median wall ms of 10 steady calls of ``request`` (3 warm-up), then
+    its device busy, idle share and launches under torch.profiler."""
+    with torch.no_grad():
+        for _ in range(3):
+            request()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            per.append(time.perf_counter() - t0)
+    req_ms = statistics.median(per) * 1e3
+    log(f"  {req_ms:.2f} ms median of 10")
+    busy, idle, n = profile_requests(torch, request, 3)
+    return {"request_ms": req_ms, "request_device_busy_ms": busy,
+            "idle_share": idle, "launches_per_request": n}
 
 
 def main() -> int:
@@ -721,6 +993,34 @@ def main() -> int:
                              decode_all_weights_ms=every)
         params = None
         torch.cuda.empty_cache()
+
+    log("== phase 9: the three-tier end -> edge -> cloud path "
+        "(examples/edge_tier.py) on full-width mamba2-130m, then gemma2-2b")
+    t9 = time.time()
+    cfg = get_config("mamba2-130m")
+    params = init_params(torch, M, cfg)
+    lt, res, rt, toks = three_tier_check(torch, cfg, params)
+    log(f"phase 9 launches {lt}")
+    for name in ("fused_boundary", "uaq_dequantize", "uaq_quantize"):
+        assert lt.get(name, 0) > 0, f"phase 9 never launched {name}"
+    add_launches(lt)
+    log("steady three-tier request (rt.run: end segment + quantize + edge "
+        "segment + dequantize/quantize + cloud segment + dequantize + head)")
+    res.update(time_request(torch, lambda: rt.run(toks)))
+    results["three-tier mamba2-130m"] = res
+    params = rt = None
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-2b")
+    params = init_params(torch, M, cfg)
+    lg, res, _, _ = three_tier_check(torch, cfg, params, executor=False)
+    log(f"gemma2-2b three-tier at the planner's {res['hop_bits']}-bit hops: "
+        f"no kernel is required there (bits outside 4/8 run the plain "
+        f"versions on the card, as in the JAX package); launches {lg}")
+    add_launches(lg)
+    results["three-tier gemma2-2b"] = res
+    params = None
+    torch.cuda.empty_cache()
+    log(f"phase 9 in {time.time() - t9:.1f}s")
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \
         "the port imported JAX or the JAX package"

@@ -1,7 +1,6 @@
-"""Observability: span tracing, bubble attribution and export, copied from
-``repro.obs`` (the metrics registry is not ported yet, ROADMAP queue 1
-item 8)."""
+"""Observability: span tracing, bubble attribution, export and the metrics
+registry, copied from ``repro.obs``."""
 
-from repro_torch.obs import bubbles, export, trace  # noqa: F401
+from repro_torch.obs import bubbles, export, metrics, trace  # noqa: F401
 
-__all__ = ["trace", "bubbles", "export"]
+__all__ = ["trace", "bubbles", "export", "metrics"]

@@ -45,7 +45,11 @@ COPIES = [
     "core/plan_fast.py", "core/partitioner.py", "core/online.py",
     "data/pipeline.py", "data/__init__.py", "obs/trace.py",
     "obs/bubbles.py", "obs/export.py", "serving/base.py",
-    "serving/engine.py",
+    "serving/engine.py", "serving/routing.py", "serving/batching.py",
+    "obs/metrics.py", "serving/async_engine.py", "serving/tenancy.py",
+    "serving/__init__.py", "models/cnn.py", "core/baselines.py",
+    "scenarios/events.py", "scenarios/churn.py", "scenarios/replan.py",
+    "scenarios/runner.py", "scenarios/__init__.py",
 ] + [f"configs/{m}.py" for m in JC.ARCHS.values()]
 
 
@@ -178,6 +182,8 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "repro_torch.launch.serve" in mods and \
         "repro_torch.kernels.boundary" in mods
+    assert {f"repro_torch.{rel[:-3].replace('/', '.')}".removesuffix(
+        ".__init__") for rel in COPIES} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"

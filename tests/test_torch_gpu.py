@@ -246,6 +246,83 @@ def test_forward_and_runtime_on_card_match_cpu(cuda, arch, over):
     assert bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_three_tier_runtime_on_card_matches_cpu(cuda, arch, bits):
+    """The three-tier (end -> edge -> cloud) runtime at reduced width, four
+    groups, cuts (1, 3).  Each hop's packet from the card is the plain
+    version's on the same activation bit for bit, and its dequantized
+    values lie within a quantum of the CPU run's (the two forwards round
+    in other places, so a code may round the other way); the card's last
+    segment on the CPU's last packet gives the CPU's logits within
+    ``TOL``.  The executor running the card runtime's fused segment
+    handles gives ``rt.run``'s logits within 1e-5, and each delivered
+    probe matches ``CollabRuntime.probe`` on the same activation."""
+    from repro_torch.core.collab import WirePacket
+    from repro_torch.core.pipeline import TaskPlan
+    from repro_torch.serving import AsyncHopPipeline, VirtualClock
+    base = get_config(arch)
+    cfg = base.reduced(num_layers=4 * len(base.pattern))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    rt = CollabRuntime(cfg, params, (1, 3), default_bits=(bits, bits))
+    grt = CollabRuntime(cfg, gparams, (1, 3), default_bits=(bits, bits))
+    xs = [torch.from_numpy(np.random.default_rng(7 + i).integers(
+        0, cfg.vocab_size, (1, 8)).astype(np.int32)) for i in range(3)]
+    D = cfg.d_model
+    for x in xs:
+        logits, pkts = rt.run(x)
+        glogits, gpkts = grt.run(x.to(cuda))
+        gpkt, gh = grt.segment_step(0, x.to(cuda))
+        for k in range(grt.n_hops):
+            if k:
+                gpkt, gh = grt.segment_step(k, gpkt)
+            want = ref.uaq_quantize_ref(gh.cpu().reshape(-1, D), bits)
+            for g, w in zip((gpkt.payload, gpkt.scale, gpkt.zp), want):
+                assert torch.equal(g.cpu().reshape(w.shape), w)
+            assert torch.equal(gpkt.payload, gpkts[k].payload)
+            deq = gpkts[k].dequantize().cpu()
+            assert bool(((deq - pkts[k].dequantize()).abs()
+                         <= pkts[k].scale * 1.001).all())
+        last = pkts[-1]
+        same = WirePacket(last.payload.to(cuda), last.scale.to(cuda),
+                          last.zp.to(cuda), bits, hop=last.hop,
+                          channels=last.channels)
+        _near(grt.segment_step(grt.n_segments - 1, same), logits, TOL)
+        assert glogits.shape == logits.shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    centers = [torch.randn((6, D), generator=gen, device=cuda)
+               for _ in range(grt.n_hops)]
+    probes, cur = {}, [None]
+    handles = [grt.segment_handle(
+        k, probe_centers=lambda k=k: centers[k],
+        on_probe=lambda k, pr: probes.__setitem__((cur[0], k), pr))
+        for k in range(grt.n_segments)]
+
+    def segment_fn(k, idx, payload):
+        cur[0] = idx
+        return handles[k](payload)
+
+    KB.LAUNCHES.clear()
+    pipe = AsyncHopPipeline(2, clock=VirtualClock(), segment_fn=segment_fn)
+    pipe.run(lambda i, _a: TaskPlan.multihop((1e-3,) * 3, (1e-3,) * 2)
+             .as_sim_plan(2), len(xs), [0.0, 1e-3, 2e-3],
+             payloads=[x.to(cuda) for x in xs])
+    assert KB.LAUNCHES["fused_boundary"] == 2 * len(xs)
+    assert KB.LAUNCHES["uaq_dequantize"] == 2 * len(xs)
+    for i, x in enumerate(xs):
+        want, _ = grt.run(x.to(cuda))
+        _near(pipe.outputs[i], want, dict(atol=1e-5, rtol=1e-5))
+        pkt, h = grt.segment_step(0, x.to(cuda))
+        for k in range(grt.n_hops):
+            if k:
+                pkt, h = grt.segment_step(k, pkt)
+            sep, best, sims = grt.probe(h, centers[k])
+            _near(probes[(i, k)].sims, sims)
+            _near(probes[(i, k)].sep, sep)
+            _near(probes[(i, k)].feat, h.mean(dim=1))
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
 def test_generate_on_card_matches_cpu_greedy(cuda, arch):
     """Greedy tokens on the card equal the CPU's, except where the CPU's
