@@ -30,9 +30,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("coach_kernels.cu", "row_pass_f32.cu", "row_pass_bf16.cu",
-           "row_pass_f16.cu", "row_pass_f32_scalar.cu",
-           "row_pass_bf16_scalar.cu", "row_pass_f16_scalar.cu")
+SOURCES = ("coach_kernels.cu", "uaq_quantize.cu", "semantic_probe.cu",
+           "row_pass_f32.cu", "row_pass_bf16.cu", "row_pass_f16.cu",
+           "row_pass_f32_scalar.cu", "row_pass_bf16_scalar.cu",
+           "row_pass_f16_scalar.cu")
 HEADERS = ("common.cuh", "row_pass.cuh")
 # never --use_fast_math: the wire fields must match the plain version
 # bit for bit (IEEE division and rounding)
@@ -45,8 +46,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, in order (see csrc/coach_kernels.cu)
 _SIGNATURES = {
     "coach_fused_boundary": [_P] * 11 + [_I] * 8 + [_P],
-    "coach_uaq_quantize": [_P] * 4 + [_I] * 6 + [_P],
-    "coach_semantic_probe": [_P] * 7 + [_I] * 7 + [_P],
+    "coach_uaq_quantize": [_P] * 4 + [_I] * 7 + [_P],
+    "coach_semantic_probe": [_P] * 5 + [_I] * 6 + [_P],
     "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
     "coach_capture_id": [_P, _P],
 }
@@ -132,7 +133,7 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-# row passes: CTAs of ROW_WARPS warps; a lane holds LANE_ELEMS elements of
+# the fused boundary's row pass: CTAs of ROW_WARPS warps; a lane holds LANE_ELEMS elements of
 # a row, so a row takes a group of 1, 2 or 4 warps (MAX_ROW elements at
 # most).  Few rows get whole groups of 4 warps each, so the card still
 # has about TARGET_WARPS warps of work.  Each batch row's S rows are dealt
@@ -161,13 +162,73 @@ def launch_shape(B: int, S: int, D: int):
 
 def check_row_width(n: int) -> None:
     if n > MAX_ROW:
-        raise ValueError(f"rows of {n} elements: the row-pass kernels take "
+        raise ValueError(f"rows of {n} elements: the boundary kernels take "
                          f"at most {MAX_ROW}")
 
 
+# the quantize (csrc/uaq_quantize.cu): the register path, a CTA a row and
+# the row in its registers (at most LANE_CAP elements a thread, so rows of
+# up to 4096 elements take a warp, 8192 two, MAX_ROW four).  While the
+# grid stays within FEW_WARPS warps, a row gets more warps, until a thread
+# holds at most LANE_FEW elements: with few rows the chain of one row's
+# steps is the time, and more warps shorten its per-thread part (8 rows
+# of 4096: 4.05 us at 1 warp a row, 2.11 at 8; 256 rows of 2304: 2.48 us
+# at 4, 3.42 at 8; 1024 rows: 4.37 at 1, 5.51 at 2).  The ring path
+# (persistent CTAs, row buffers in shared memory) is there for callers
+# that ask for it (`ring_ctas`).  Rows are independent, so the shape picks
+# the speed only, never the bits.
+LANE_CAP = 128
+LANE_FEW = 12
+SMS = 132  # an H100's SMs
+FEW_WARPS = 8 * SMS
+SMEM_PER_SM = 233472  # shared memory of an SM (1 KB a CTA is reserved)
+SMEM_PER_CTA = 232448  # the most one CTA may take
+
+
+def quantize_shape(M: int, N: int, elem_bytes: int):
+    """(warps a CTA, ring stages, CTAs) of a quantize launch over (M, N)
+    elements of ``elem_bytes`` bytes: the register path (0 stages), M
+    CTAs of 1-8 warps."""
+    warps = 1
+    while 32 * warps * LANE_CAP < N:
+        warps *= 2
+    while (warps < 8 and 32 * warps * LANE_FEW < N
+           and 2 * warps * M <= FEW_WARPS):
+        warps *= 2
+    return warps, 0, M
+
+
+def ring_ctas(M: int, N: int, elem_bytes: int, warps: int, stages: int):
+    """CTAs of a ring-path quantize over (M, N): as many as fit on the SMs
+    at once and no more than the rows need; None where one CTA's row
+    buffers do not fit in shared memory."""
+    slot = -(-N * elem_bytes // 128) * 128
+    smem = -(-8 * warps * stages // 128) * 128 + warps * stages * slot
+    if smem > SMEM_PER_CTA:
+        return None
+    per_sm = min(SMEM_PER_SM // (smem + 1024), 64 // warps, 32)
+    return min(-(-M // warps), SMS * per_sm)
+
+
+# the semantic probe (csrc/semantic_probe.cu): a cluster of 8 CTAs a batch
+# row, or of 16 where a batch row holds PROBE_BIG elements or more and
+# the B clusters of 16 are all resident at once: its CTAs take an SM each,
+# and an H100 holds CLUSTERS_16 such clusters (cudaOccupancyMaxActiveClusters,
+# tools/diag_cluster_launch.py); more go in a second wave, which made the
+# large shape (8, 4096, 2304) 126 us with 16 against 105 with 8.  A
+# function of the shape only: the cluster size sets the summation order.
+PROBE_BIG = 1 << 20
+CLUSTERS_16 = 7
+
+
+def probe_cluster(B: int, S: int, D: int) -> int:
+    """CTAs in the cluster of each batch row of a probe over (B, S, D)."""
+    return 16 if S * D >= PROBE_BIG and B <= CLUSTERS_16 else 8
+
+
 def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 arrival counters for a probe launch on
-    ``t``'s device and current stream.  The kernel leaves them at 0 when
+    """At least ``n`` zeroed int32 arrival counters for a fused boundary
+    launch on ``t``'s device and current stream.  The kernel leaves them at 0 when
     it ends, so a buffer serves, without a fill, every launch ordered
     after its first one:
       * outside a CUDA-graph capture, one buffer per (device, stream),

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) kernels for the COACH boundary hop: the dequantize
-// kernel and the C entry points of all four (row-pass kernels in
-// row_pass.cuh, built in row_pass_*.cu).
+// kernel and the C entry points of it and of the fused boundary kernel
+// (its row pass in row_pass.cuh, built in row_pass_*.cu).  The quantize
+// and the semantic probe have kernels of their own, in uaq_quantize.cu and
+// semantic_probe.cu, with their design notes.
 //
-// Replaces the four Pallas TPU kernels of the JAX package:
+// Together they replace the four Pallas TPU kernels of the JAX package:
 //   coach_fused_boundary  <- repro/kernels/boundary.py  fused_boundary
 //                            (_boundary_kernel): quantize + int4/int8 pack
 //                            + GAP + semantic probe in one read of x
@@ -19,7 +21,7 @@
 // bytes it moves through device memory.  The design keeps that traffic at
 // one read of every input and one write of every output, with enough
 // loads in flight and no block-wide barrier per row:
-//   * row pass (K1, K3, K4): a CTA of 4 warps owns a run of rows (tokens)
+//   * row pass (K1): a CTA of 4 warps owns a run of rows (tokens)
 //     of one batch row, and one warp owns one row at a time (a group of 2
 //     or 4 warps when the row is wider than 2304 elements, or when there
 //     are too few rows to fill the card).  The warp loads the whole row
@@ -31,7 +33,7 @@
 //     (per-lane registers for them spilled: 255 registers with K1's row
 //     held as well); the CTA combines its warps' sums once at the end, in
 //     a fixed order, into one fp32 partial row;
-//   * probe epilogue (K1, K4), in the same launch: each CTA writes its
+//   * probe epilogue (K1), in the same launch: each CTA writes its
 //     partial row to a (B, n_chunks, D) workspace and counts itself in a
 //     per-batch-row arrival counter; the CTA that arrives last sums the
 //     partials in chunk order (deterministic, no float atomics), runs the
@@ -171,25 +173,21 @@ cudaError_t launch_dequant_t(const void* payload, const void* scale,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_rows(const RowArgs& a, int bits, bool quant, bool gap,
-                        int dtype, cudaStream_t st) {
+cudaError_t launch_rows(const RowArgs& a, int bits, int dtype,
+                        cudaStream_t st) {
   if (a.B <= 0 || a.S <= 0 || a.D <= 0 || a.rows_per_cta <= 0 ||
-      a.B > 65535 || (gap && a.L <= 0))
+      a.B > 65535 || a.L <= 0)
     return cudaErrorInvalidValue;
   // 16-byte loads of x (and up to 8-byte stores of the payload) need
   // D % 8 == 0 and aligned pointers
-  const bool vec = a.D % 8 == 0 && aligned(a.x, 16) &&
-                   (!quant || aligned(a.payload, 8));
+  const bool vec = a.D % 8 == 0 && aligned(a.x, 16) && aligned(a.payload, 8);
   switch (dtype) {
     case kF32:
-      return (vec ? coach_rows_f32 : coach_rows_f32_scalar)(a, bits, quant,
-                                                            gap, st);
+      return (vec ? coach_rows_f32 : coach_rows_f32_scalar)(a, bits, st);
     case kBF16:
-      return (vec ? coach_rows_bf16 : coach_rows_bf16_scalar)(a, bits, quant,
-                                                              gap, st);
+      return (vec ? coach_rows_bf16 : coach_rows_bf16_scalar)(a, bits, st);
     case kF16:
-      return (vec ? coach_rows_f16 : coach_rows_f16_scalar)(a, bits, quant,
-                                                            gap, st);
+      return (vec ? coach_rows_f16 : coach_rows_f16_scalar)(a, bits, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -202,8 +200,8 @@ cudaError_t launch_rows(const RowArgs& a, int bits, bool quant, bool gap,
 // Tensors are contiguous; x is float32, bfloat16 or float16 (`dtype`,
 // enum DType), centers float32; `counters` holds at least B zeroed
 // unsigned ints that no other launch uses meanwhile, and is left zeroed.
-// A row pass runs `rows_per_cta` rows a CTA and `wpr` warps (1, 2 or 4)
-// a row.
+// The fused boundary row pass runs `rows_per_cta` rows a CTA and `wpr`
+// warps (1, 2 or 4) a row.
 
 extern "C" int coach_fused_boundary(const void* x, const void* centers,
                                     void* payload, void* scale, void* zp,
@@ -215,31 +213,7 @@ extern "C" int coach_fused_boundary(const void* x, const void* centers,
   const RowArgs a{x,    payload, scale, zp, ws, counters,     centers, feat,
                   sep,  best,    sims,  B,  S,  D,            L,
                   rows_per_cta, wpr};
-  return (int)launch_rows(a, bits, true, true, dtype,
-                          static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int coach_uaq_quantize(const void* x, void* payload, void* scale,
-                                  void* zp, int M, int N, int bits,
-                                  int rows_per_cta, int wpr, int dtype,
-                                  void* stream) {
-  const RowArgs a{x,       payload, scale,   zp,      nullptr, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-                  M,       N,       0,       rows_per_cta,     wpr};
-  return (int)launch_rows(a, bits, true, false, dtype,
-                          static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int coach_semantic_probe(const void* x, const void* centers,
-                                    void* ws, void* counters, void* sep,
-                                    void* best, void* sims, int B, int S,
-                                    int D, int L, int rows_per_cta, int wpr,
-                                    int dtype, void* stream) {
-  const RowArgs a{x,       nullptr, nullptr, nullptr, ws, counters,  centers,
-                  nullptr, sep,     best,    sims,    B,  S,         D,
-                  L,       rows_per_cta,     wpr};
-  return (int)launch_rows(a, 8, false, true, dtype,
-                          static_cast<cudaStream_t>(stream));
+  return (int)launch_rows(a, bits, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int coach_uaq_dequantize(const void* payload, const void* scale,
@@ -264,7 +238,8 @@ extern "C" int coach_uaq_dequantize(const void* payload, const void* scale,
 }
 
 // The id of the CUDA-graph capture under way on `stream` into *id, or 0
-// when none is (the wrappers keep arrival counters per capture).
+// when none is (the fused boundary wrapper keeps arrival counters per
+// capture).
 extern "C" int coach_capture_id(void* stream, unsigned long long* id) {
   cudaStreamCaptureStatus status;
   unsigned long long cid = 0;

@@ -1,6 +1,6 @@
-// Shared pieces of the boundary kernels (coach_kernels.cu, row_pass.cuh):
-// element types, warp reductions, the UAQ rounding of one value, and the
-// row-pass entry points.
+// Shared pieces of the boundary kernels (coach_kernels.cu, row_pass.cuh,
+// uaq_quantize.cu, semantic_probe.cu): element types, warp reductions, the
+// UAQ rounding of one value, and the fused boundary kernel's entry points.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,8 +12,7 @@
 // dtype codes of the entry points (kernels/_build.py DTYPE_CODES)
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-// Arguments of a row pass (K1: quantize + GAP + probe, K3: quantize, K4:
-// GAP + probe); pointers a pass does not use are null.
+// Arguments of the fused boundary row pass (K1: quantize + GAP + probe).
 struct RowArgs {
   const void* x;
   void *payload, *scale, *zp, *ws, *counters;
@@ -25,9 +24,8 @@ struct RowArgs {
 // One per activation type and load width (16-byte vectors, or single
 // elements for odd widths and unaligned rows), each in its own
 // translation unit row_pass_*.cu, so that nvcc builds them in parallel.
-#define COACH_ROWS(name)                                                  \
-  cudaError_t name(const RowArgs& a, int bits, bool quant, bool gap, \
-                   cudaStream_t st)
+#define COACH_ROWS(name) \
+  cudaError_t name(const RowArgs& a, int bits, cudaStream_t st)
 COACH_ROWS(coach_rows_f32);
 COACH_ROWS(coach_rows_bf16);
 COACH_ROWS(coach_rows_f16);

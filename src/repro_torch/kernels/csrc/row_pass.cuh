@@ -1,7 +1,6 @@
-// Row-pass kernels: K1 fused boundary (quantize + pack + GAP + probe), K3
-// UAQ quantize (+ pack) and K4 semantic probe (GAP + probe), one template.
-// Instantiated per activation type and load width in row_pass_*.cu; the
-// design notes are in coach_kernels.cu.
+// Row-pass kernel of K1, the fused boundary (quantize + pack + GAP +
+// probe).  Instantiated per activation type and load width in
+// row_pass_*.cu; the design notes are in coach_kernels.cu.
 #pragma once
 
 #include <atomic>
@@ -96,7 +95,7 @@ __device__ void probe_epilogue(const float* __restrict__ w, int n_chunks,
 #pragma unroll
         for (int i = 0; i < W; ++i) {
           const float f = __fdiv_rn(t[a][i], sf);
-          if (feat != nullptr) feat[u * W + i] = f;
+          feat[u * W + i] = f;
           fs[u * W + i] = f;
           ss = __fmaf_rn(f, f, ss);
         }
@@ -198,9 +197,9 @@ __device__ void probe_epilogue(const float* __restrict__ w, int n_chunks,
 // CTA (blockIdx.x, blockIdx.y) owns rows [s0, s1) of batch row b =
 // blockIdx.y.  Its warps come in groups of `wpr` (1, 2 or 4), one row in
 // flight per group; lane g of a group holds vectors g, g + 32*wpr, ... of
-// the row (VEC elements each) in registers.  QUANT writes the wire fields
-// of each row.  GAP adds each row into the group's row of shared memory
-// (the lane's own columns, so no barrier), writes the CTA's partial, the
+// the row (VEC elements each) in registers.  It writes the wire fields of
+// each row and adds it into the group's row of shared memory (the
+// lane's own columns, so no barrier); the CTA writes its partial, the
 // groups summed in order, to ws[b, blockIdx.x] and, in the last CTA of
 // batch row b, runs the probe epilogue.
 template <int VEC>
@@ -269,7 +268,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 // The scalar path (odd widths, unaligned rows) keeps its 72 slots a lane
 // in local memory: its slot loops are not unrolled, which keeps the build
 // short; it is not the path of any model's width.
-template <typename T, int VEC, int BITS, bool QUANT, bool GAP>
+template <typename T, int VEC, int BITS>
 __global__ void __launch_bounds__(kRowThreads, kRowCtasPerSm)
 row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
                 float* __restrict__ scale, float* __restrict__ zp,
@@ -279,7 +278,7 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
                 float* __restrict__ sims, int S, int D, int L,
                 int rows_per_cta, int wpr) {
   constexpr int NV = kLaneElems / VEC;  // vector slots per lane
-  // GAP: ng rows of D sums, then f and sims in the epilogue
+  // ng rows of D GAP sums, then f and sims in the epilogue
   extern __shared__ float sm[];
   __shared__ float mm[2][kRowWarps][2];  // min/max per warp, 2 rows
   __shared__ int is_last;
@@ -295,15 +294,13 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
   const int s0 = blockIdx.x * rows_per_cta;
   const int s1 = min(S, s0 + rows_per_cta);
   float* acc = sm + grp * D;  // this group's GAP sums
-  if (GAP) {
 #pragma unroll (VEC == 1 ? 1 : NV)
-    for (int k = 0; k < NV; ++k) {
-      if (k * gstride >= nvec) break;
-      const int vi = g + k * gstride;
-      if (vi < nvec)
+  for (int k = 0; k < NV; ++k) {
+    if (k * gstride >= nvec) break;
+    const int vi = g + k * gstride;
+    if (vi < nvec)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[vi * VEC + i] = 0.f;
-    }
+      for (int i = 0; i < VEC; ++i) acc[vi * VEC + i] = 0.f;
   }
   int parity = 0;
   for (int s = s0 + grp; s < s1; s += ng, parity ^= 1) {
@@ -335,17 +332,14 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
       if (k * gstride >= nvec) break;
       const int vi = g + k * gstride;
       if (vi < nvec) {
-        if (GAP) gap_add<VEC>(acc + vi * VEC, &v[k * VEC]);
-        if (QUANT) {
+        gap_add<VEC>(acc + vi * VEC, &v[k * VEC]);
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) {
-            lo = fminf(lo, v[k * VEC + i]);
-            hi = fmaxf(hi, v[k * VEC + i]);
-          }
+        for (int i = 0; i < VEC; ++i) {
+          lo = fminf(lo, v[k * VEC + i]);
+          hi = fmaxf(hi, v[k * VEC + i]);
         }
       }
     }
-    if (!QUANT) continue;
     lo = warp_min(lo);
     hi = warp_max(hi);
     if (wpr > 1) {  // combine the group's warps (exact: min/max)
@@ -374,38 +368,36 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
     else
       pack_row<VEC, BITS, NV, false>(v, pr, sc, r, z, g, gstride, nvec, D);
   }
-  if constexpr (GAP) {
-    __syncthreads();
-    const int n_chunks = gridDim.x;
-    float* w = ws + (size_t)b * n_chunks * D;
-    for (int c = threadIdx.x; c < D; c += kRowThreads) {
-      float t = sm[c];
-      for (int i = 1; i < ng; ++i) t = __fadd_rn(t, sm[i * D + c]);
-      w[(size_t)blockIdx.x * D + c] = t;
-    }
-    // publish the partial, then count this CTA in
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      is_last = atomicAdd(&counters[b], 1u) == (unsigned)(n_chunks - 1);
-      if (is_last) counters[b] = 0u;  // every CTA of b has arrived
-    }
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    float* fb = feat != nullptr ? feat + (size_t)b * D : nullptr;
-    if (D % 4 == 0 && ((reinterpret_cast<uintptr_t>(centers) |
-                        reinterpret_cast<uintptr_t>(w)) % 16 == 0))
-      probe_epilogue<4>(w, n_chunks, centers, fb, sep + b, best + b,
-                        sims + (size_t)b * L, S, D, L, sm);
-    else
-      probe_epilogue<1>(w, n_chunks, centers, fb, sep + b, best + b,
-                        sims + (size_t)b * L, S, D, L, sm);
+  __syncthreads();
+  const int n_chunks = gridDim.x;
+  float* w = ws + (size_t)b * n_chunks * D;
+  for (int c = threadIdx.x; c < D; c += kRowThreads) {
+    float t = sm[c];
+    for (int i = 1; i < ng; ++i) t = __fadd_rn(t, sm[i * D + c]);
+    w[(size_t)blockIdx.x * D + c] = t;
   }
+  // publish the partial, then count this CTA in
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(&counters[b], 1u) == (unsigned)(n_chunks - 1);
+    if (is_last) counters[b] = 0u;  // every CTA of b has arrived
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  float* fb = feat + (size_t)b * D;
+  if (D % 4 == 0 && ((reinterpret_cast<uintptr_t>(centers) |
+                      reinterpret_cast<uintptr_t>(w)) % 16 == 0))
+    probe_epilogue<4>(w, n_chunks, centers, fb, sep + b, best + b,
+                      sims + (size_t)b * L, S, D, L, sm);
+  else
+    probe_epilogue<1>(w, n_chunks, centers, fb, sep + b, best + b,
+                      sims + (size_t)b * L, S, D, L, sm);
 }
 
 // ------------------------------------------------ host side
-template <typename T, int VEC, int BITS, bool QUANT, bool GAP>
+template <typename T, int VEC, int BITS>
 cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
   // the group must hold the row: wpr * 32 lanes of kLaneElems elements
   if (a.wpr != 1 && a.wpr != 2 && a.wpr != kRowWarps) return cudaErrorInvalidValue;
@@ -413,9 +405,8 @@ cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
   const int ng = kRowWarps / a.wpr;
   const int n_chunks = (a.S + a.rows_per_cta - 1) / a.rows_per_cta;
   const size_t smem =
-      GAP ? (size_t)(ng * a.D > a.D + a.L ? ng * a.D : a.D + a.L) * sizeof(float)
-          : 0;
-  auto kernel = row_pass_kernel<T, VEC, BITS, QUANT, GAP>;
+      (size_t)(ng * a.D > a.D + a.L ? ng * a.D : a.D + a.L) * sizeof(float);
+  auto kernel = row_pass_kernel<T, VEC, BITS>;
   // once per kernel and device, before its first launch there: all of L1
   // as shared memory (3 CTAs an SM), and leave to use all of it.  Threads
   // that race here set the same values.
@@ -443,9 +434,7 @@ cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
     md = optin - (int)fa.sharedSizeBytes;
     max_dyn[dev].store(md, std::memory_order_release);
   }
-  if constexpr (GAP) {
-    if (smem > (size_t)md) return cudaErrorInvalidValue;
-  }
+  if (smem > (size_t)md) return cudaErrorInvalidValue;
   kernel<<<dim3(n_chunks, a.B), kRowThreads, smem, st>>>(
       static_cast<const T*>(a.x), static_cast<uint8_t*>(a.payload),
       static_cast<float*>(a.scale), static_cast<float*>(a.zp),
@@ -456,18 +445,11 @@ cudaError_t launch_row_pass(const RowArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// K1 (quant && gap), K3 (quant) or K4 (gap) for activations of type T,
-// loaded VEC elements at a time
+// K1 for activations of type T, loaded VEC elements at a time
 template <typename T, int VEC>
-cudaError_t rows_entry(const RowArgs& a, int bits, bool quant, bool gap,
-                       cudaStream_t st) {
-  if (quant && gap && bits == 4)
-    return launch_row_pass<T, VEC, 4, true, true>(a, st);
-  if (quant && gap && bits == 8)
-    return launch_row_pass<T, VEC, 8, true, true>(a, st);
-  if (quant && bits == 4) return launch_row_pass<T, VEC, 4, true, false>(a, st);
-  if (quant && bits == 8) return launch_row_pass<T, VEC, 8, true, false>(a, st);
-  if (gap && !quant) return launch_row_pass<T, VEC, 8, false, true>(a, st);
+cudaError_t rows_entry(const RowArgs& a, int bits, cudaStream_t st) {
+  if (bits == 4) return launch_row_pass<T, VEC, 4>(a, st);
+  if (bits == 8) return launch_row_pass<T, VEC, 8>(a, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
-// Row-pass kernels (K1, K3, K4) for float32 activations, one element a
+// Row-pass kernels (K1) for float32 activations, one element a
 // load (odd widths, unaligned rows).
 #include "row_pass.cuh"
 
 COACH_ROWS(coach_rows_f32_scalar) {
-  return rows_entry<float, 1>(a, bits, quant, gap, st);
+  return rows_entry<float, 1>(a, bits, st);
 }

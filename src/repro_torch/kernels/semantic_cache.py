@@ -3,9 +3,11 @@ label centers -> top-2 -> separability, Eq. 8-10): wrapper of the Hopper
 kernel that replaces the Pallas ``semantic_probe``
 (``repro/kernels/semantic_cache.py``).
 
-It is the fused boundary kernel's GAP pass without the quantize, with
-the same probe epilogue in the same launch (``csrc/coach_kernels.cu``).  On a CUDA tensor the
-wrapper launches the kernel or raises; on a CPU tensor it runs
+One launch of a thread-block cluster a batch row: each CTA sums a column
+slice of the rows and dots it with its slice of the centers, and the
+first CTA of the cluster adds the partial sums in a fixed order and runs
+the top-2 (``csrc/semantic_probe.cu``).  On a CUDA tensor the wrapper
+launches the kernel or raises; on a CPU tensor it runs
 ``ref.semantic_probe_ref``.
 """
 
@@ -24,17 +26,14 @@ def semantic_probe(x: torch.Tensor, centers: torch.Tensor):
         return ref.semantic_probe_ref(x, centers)
     dev = x.device
     B, S, D, L = KB.require_probe_inputs(x, centers)
-    r, wpr = KB.launch_shape(B, S, D)
-    ws = torch.empty((B, -(-S // r), D), dtype=torch.float32, device=dev)
     sep = torch.empty((B,), dtype=torch.float32, device=dev)
     best = torch.empty((B,), dtype=torch.int32, device=dev)
     sims = torch.empty((B, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        counters = KB.arrival_counters(x, B)
         err = KB.lib().coach_semantic_probe(
-            x.data_ptr(), centers.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), sep.data_ptr(), best.data_ptr(),
-            sims.data_ptr(), B, S, D, L, r, wpr, KB.DTYPE_CODES[x.dtype],
+            x.data_ptr(), centers.data_ptr(), sep.data_ptr(),
+            best.data_ptr(), sims.data_ptr(), B, S, D, L,
+            KB.probe_cluster(B, S, D), KB.DTYPE_CODES[x.dtype],
             KB.stream_of(x))
     KB.check(err, "semantic_probe")
     KB.LAUNCHES["semantic_probe"] += 1

@@ -2,8 +2,8 @@
 kernels that replace the Pallas ``uaq_quantize`` / ``uaq_dequantize``
 (``repro/kernels/uaq.py``).
 
-On a CUDA tensor each wrapper launches its kernel (``csrc/coach_kernels.cu``)
-or raises; on a CPU tensor it runs the plain PyTorch version in
+On a CUDA tensor each wrapper launches its kernel
+(``csrc/uaq_quantize.cu``, ``csrc/coach_kernels.cu``) or raises; on a CPU tensor it runs the plain PyTorch version in
 ``kernels.ref``.  Unlike the Pallas kernels, any row count M works (no
 block-multiple assert).  Like the Pallas kernels, they read float32,
 bfloat16 or float16 activations (all quantize math in float32) and write
@@ -36,12 +36,12 @@ def uaq_quantize(x: torch.Tensor, bits: int):
     payload = torch.empty((M, P), dtype=torch.uint8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     zp = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    r, wpr = KB.launch_shape(1, M, N)
+    warps, stages, ctas = KB.quantize_shape(M, N, x.element_size())
     with torch.cuda.device(x.device):
         err = KB.lib().coach_uaq_quantize(
             x.data_ptr(), payload.data_ptr(), scale.data_ptr(),
-            zp.data_ptr(), M, N, bits, r, wpr, KB.DTYPE_CODES[x.dtype],
-            KB.stream_of(x))
+            zp.data_ptr(), M, N, bits, warps, stages, ctas,
+            KB.DTYPE_CODES[x.dtype], KB.stream_of(x))
     KB.check(err, "uaq_quantize")
     KB.LAUNCHES["uaq_quantize"] += 1
     return payload, scale, zp

@@ -168,11 +168,18 @@ def test_fused_boundary_is_deterministic_across_calls_and_graph_replays(cuda):
 
 
 @pytest.mark.parametrize("probe", ["fused_boundary", "semantic_probe"])
-def test_graphs_captured_on_one_stream_keep_their_own_counters(cuda, probe):
+def test_graphs_captured_on_one_stream_keep_their_own_counters(
+        cuda, probe, monkeypatch):
     """Two graphs captured one after the other on the same stream, each
     with a probe launch, replayed in reverse order and then at the same
     time on two streams, each match the plain version: neither starts
-    from the other's counters or races on them."""
+    from the other's counters or races on them.  The semantic probe has
+    no counters (a cluster a batch row): it never asks for them, and its
+    replays are bit-equal to an eager call."""
+    if probe == "semantic_probe":
+        def no_counters(*a):
+            raise AssertionError("the semantic probe took arrival counters")
+        monkeypatch.setattr(KB, "arrival_counters", no_counters)
     # the call, its plain version, and which outputs are probe fields
     fn, plain, near = {
         "fused_boundary": (lambda x, c: fused_boundary(x, c, 8),
@@ -208,6 +215,101 @@ def test_graphs_captured_on_one_stream_keep_their_own_counters(cuda, probe):
                 _near(g, w)
             else:
                 assert torch.equal(g, w)
+        if probe == "semantic_probe":
+            for g, w in zip(got, fn(x, c)):
+                assert torch.equal(g, w)
+
+
+def _signed_zero_and_nan_rows(M, N, device):
+    """Rows whose min or max is a zero of either sign (both signs in one
+    row, one alone, all -0.0) and rows holding a NaN, beside plain rows."""
+    x = torch.from_numpy(np.random.default_rng(M * N).random(
+        (M, N)).astype(np.float32) * 3.0)
+    x[0, ::7] = 0.0
+    x[0, 3::11] = -0.0
+    x[1] = x[1].abs()
+    x[1, N // 2] = -0.0
+    x[2] = -x[2].abs()
+    x[2, N - 1] = 0.0
+    x[3, N // 3] = float("nan")
+    x[4] = -0.0
+    x[5, 0] = float("nan")
+    x[5, 1] = 0.0
+    return x.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M,N", [(8, 768), (8, 2304), (2048, 2304), (7, 33)])
+def test_quantize_on_signed_zeros_and_nan_matches_plain(cuda, M, N, bits,
+                                                        dtype):
+    """The quantize's min and max order -0.0 below +0.0 and carry a NaN to
+    the row's lo and hi: codes and scale are the plain version's bits, zp
+    its value (-0.0 == +0.0), and a row holding a NaN gets NaN scale and
+    zp and all-zero codes, as torch.amin / clamp / .to(uint8) give.  On
+    the register path (8 rows), the ring path (2048) and the scalar path
+    (odd width)."""
+    x = _signed_zero_and_nan_rows(M, N, cuda).to(dtype)
+    got = uaq_quantize(x, bits)
+    want = ref.uaq_quantize_ref(x, bits)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    assert bool(torch.isnan(got[1][3]).all() and torch.isnan(got[2][5]).all())
+    assert not bool(got[0][3].any())
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M,N", [(8, 2304), (264, 2304), (265, 2304),
+                                 (1024, 2304), (1025, 2304), (3000, 768),
+                                 (5, 9216), (40, 4608), (33, 4096)])
+def test_quantize_paths_match_plain_version(cuda, M, N, bits):
+    """The launch shape the wrapper picks and every other one at the same
+    rows (the register path at 1-8 warps a row, the ring path at 1 and 4
+    warps a CTA and 2 and 4 stages) give the plain version's bits."""
+    x = torch.from_numpy((np.random.default_rng(M + N).standard_normal(
+        (M, N)) * 2.0 + 0.3).astype(np.float32)).to(cuda)
+    want = ref.uaq_quantize_ref(x, bits)
+    for g, w in zip(uaq_quantize(x, bits), want):
+        assert torch.equal(g, w)
+    p, s, z = (torch.empty_like(t) for t in want)
+    opts = [(w, 0, M) for w in (1, 2, 4, 8) if 32 * w * KB.LANE_CAP >= N]
+    opts += [(w, st, KB.ring_ctas(M, N, 4, w, st)) for w in (1, 4)
+             for st in (2, 4)]
+    for w, st, c in opts:
+        if c is None:
+            continue
+        KB.check(KB.lib().coach_uaq_quantize(
+            x.data_ptr(), p.data_ptr(), s.data_ptr(), z.data_ptr(), M, N,
+            bits, w, st, c, 0, KB.stream_of(x)), "uaq_quantize")
+        torch.cuda.synchronize()
+        for g, h in zip((p, s, z), want):
+            assert torch.equal(g, h), (w, st, c)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("B,S,D,L", [(1, 8, 2304, 16), (3, 100, 33, 4),
+                                     (2, 5, 16, 40), (2, 64, 9216, 3),
+                                     (8, 512, 768, 600)])
+def test_probe_at_either_cluster_size_matches_plain(cuda, B, S, D, L,
+                                                    cluster):
+    """Clusters of 8 and of 16 CTAs, including slices that hold no vector
+    (D = 16), odd widths, more centers than threads, and the widest rows,
+    give the plain version's sims and sep within PROBE_TOL."""
+    x, c = _inputs(B, S, D, L, cuda, seed=D + L)
+    sep = torch.empty((B,), device=cuda)
+    best = torch.empty((B,), dtype=torch.int32, device=cuda)
+    sims = torch.empty((B, L), device=cuda)
+    KB.check(KB.lib().coach_semantic_probe(
+        x.data_ptr(), c.data_ptr(), sep.data_ptr(), best.data_ptr(),
+        sims.data_ptr(), B, S, D, L, cluster, 0, KB.stream_of(x)),
+        "semantic_probe")
+    wsep, wbest, wsims = ref.semantic_probe_ref(x, c)
+    _near(sims, wsims)
+    _near(sep, wsep)
+    assert torch.equal(best, wbest)
 
 
 # every registered arch, reduced; jamba at 16 layers for two groups

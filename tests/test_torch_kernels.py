@@ -315,6 +315,95 @@ def test_launch_shape_depends_on_the_shape_only():
     assert KB.MAX_ROW == 9216
 
 
+def _widths():
+    from repro_torch.configs import ARCHS, get_config
+    return sorted({get_config(a).d_model for a in ARCHS} | {KB.MAX_ROW})
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_quantize_shape_depends_on_the_shape_only(elem_bytes):
+    """K3's launch shape for every config's d_model and the widest row:
+    the register path, a CTA a row, with enough warps that a thread holds
+    at most LANE_CAP elements, and, while the grid stays within FEW_WARPS
+    warps, enough that it holds at most LANE_FEW (the chain of one row's
+    steps is then the time); a ring-path launch fits one CTA's shared
+    memory and the card."""
+    assert KB.quantize_shape(8, 768, 4) == (2, 0, 8)  # three-tier relays
+    assert KB.quantize_shape(8, 2304, 2) == (8, 0, 8)  # serve, gemma2-2b
+    assert KB.quantize_shape(8, 4096, 4) == (8, 0, 8)  # mixtral-8x7b
+    assert KB.quantize_shape(256, 2304, 4) == (4, 0, 256)
+    assert KB.quantize_shape(1024, 2304, 4) == (1, 0, 1024)
+    assert KB.quantize_shape(32768, 2304, 4) == (1, 0, 32768)
+    assert KB.quantize_shape(32768, KB.MAX_ROW, 2) == (4, 0, 32768)
+    assert KB.ring_ctas(32768, 2304, 4, 4, 3) == 264  # 2 CTAs an SM
+    assert KB.ring_ctas(32768, 2304, 2, 4, 3) == 528
+    assert KB.ring_ctas(8, KB.MAX_ROW, 4, 4, 2) is None  # 36 KB rows
+    for N in _widths():
+        for M in (1, 8, 256, 1024, 1025, 32768):
+            warps, stages, ctas = KB.quantize_shape(M, N, elem_bytes)
+            assert (warps, stages, ctas) == KB.quantize_shape(
+                M, N, elem_bytes)
+            assert warps in (1, 2, 4, 8) and stages == 0 and ctas == M
+            need = 1  # warps that hold the row
+            while 32 * need * KB.LANE_CAP < N:
+                need *= 2
+            assert warps >= need
+            assert warps == need or M * warps <= KB.FEW_WARPS
+            assert warps == need or 16 * warps * KB.LANE_FEW < N
+            for w in (1, 2, 4):
+                for st in (2, 3):
+                    c = KB.ring_ctas(M, N, elem_bytes, w, st)
+                    slot = -(-N * elem_bytes // 128) * 128
+                    fits = w * st * slot + 128 <= KB.SMEM_PER_CTA
+                    assert (c is not None) == fits
+                    assert c is None or 1 <= c <= min(-(-M // w),
+                                                      32 * KB.SMS)
+
+
+def test_probe_cluster_depends_on_the_shape_only():
+    """K4's cluster size: 8 CTAs a batch row at serve's shapes and for
+    more batch rows than clusters of 16 the card holds at once, 16 where a
+    few batch rows hold many tokens; a function of (B, S, D) only, for
+    every config's d_model."""
+    assert KB.probe_cluster(1, 8, 2304) == 8  # serve
+    assert KB.probe_cluster(1, 4096, 2304) == 16  # a batch row of many rows
+    assert KB.probe_cluster(8, 4096, 2304) == 8  # 8 clusters of 16: 2 waves
+    assert KB.probe_cluster(300, 8, 2304) == 8
+    for D in _widths():
+        for B, S in ((1, 1), (1, 8), (8, 128), (8, 4096), (64, 4096)):
+            C = KB.probe_cluster(B, S, D)
+            assert C in (8, 16) and C == KB.probe_cluster(B, S, D)
+            big = S * D >= KB.PROBE_BIG and B <= KB.CLUSTERS_16
+            assert (C == 16) == big
+
+
+def test_probe_and_quantize_take_no_counters_or_workspace():
+    """K4 is one cluster launch a batch row: its wrapper asks for no
+    arrival counters (the fused boundary's wrapper still does) and its C
+    entry point takes no workspace, counters or row-pass shape; K3's
+    takes its own launch shape."""
+    import inspect
+
+    from repro_torch.kernels import boundary, semantic_cache, uaq
+    assert "arrival_counters" not in inspect.getsource(semantic_cache)
+    assert "arrival_counters" not in inspect.getsource(uaq)
+    assert "arrival_counters" in inspect.getsource(boundary)
+    src = "".join((KB.CSRC / f).read_text() for f in KB.SOURCES)
+    names = {}
+    for name, args in re.findall(r'extern "C" int (coach_\w+)\(([^)]*)\)',
+                                 src):
+        names[name] = [a.split()[-1].lstrip("*") for a in args.split(",")]
+    assert names["coach_semantic_probe"] == [
+        "x", "centers", "sep", "best", "sims", "B", "S", "D", "L",
+        "cluster", "dtype", "stream"]
+    assert names["coach_uaq_quantize"] == [
+        "x", "payload", "scale", "zp", "M", "N", "bits", "warps", "stages",
+        "ctas", "dtype", "stream"]
+    for name in ("coach_semantic_probe", "coach_uaq_quantize"):
+        assert not {"ws", "counters", "rows_per_cta", "wpr"} & set(
+            names[name])
+
+
 def test_arrival_counters_are_kept_per_stream_and_per_capture(monkeypatch):
     """Outside a capture one zeroed buffer per (device, stream) is reused;
     each CUDA-graph capture gets its own, made inside it, so two graphs
