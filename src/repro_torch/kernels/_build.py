@@ -46,7 +46,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, in order (see csrc/coach_kernels.cu)
 _SIGNATURES = {
     "coach_fused_boundary": [_P] * 11 + [_I] * 8 + [_P],
-    "coach_uaq_quantize": [_P] * 4 + [_I] * 7 + [_P],
+    "coach_uaq_quantize": [_P] * 4 + [_I] * 5 + [_P],
     "coach_semantic_probe": [_P] * 5 + [_I] * 6 + [_P],
     "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
     "coach_capture_id": [_P, _P],
@@ -166,48 +166,30 @@ def check_row_width(n: int) -> None:
                          f"at most {MAX_ROW}")
 
 
-# the quantize (csrc/uaq_quantize.cu): the register path, a CTA a row and
-# the row in its registers (at most LANE_CAP elements a thread, so rows of
-# up to 4096 elements take a warp, 8192 two, MAX_ROW four).  While the
-# grid stays within FEW_WARPS warps, a row gets more warps, until a thread
-# holds at most LANE_FEW elements: with few rows the chain of one row's
-# steps is the time, and more warps shorten its per-thread part (8 rows
-# of 4096: 4.05 us at 1 warp a row, 2.11 at 8; 256 rows of 2304: 2.48 us
-# at 4, 3.42 at 8; 1024 rows: 4.37 at 1, 5.51 at 2).  The ring path
-# (persistent CTAs, row buffers in shared memory) is there for callers
-# that ask for it (`ring_ctas`).  Rows are independent, so the shape picks
-# the speed only, never the bits.
+# the quantize (csrc/uaq_quantize.cu): a CTA a row and the row in its
+# registers, at most LANE_CAP elements a thread, so rows of up to 4096
+# elements take a warp, 8192 two, MAX_ROW four.  While the grid stays
+# within FEW_WARPS warps, a row gets more warps, until a thread holds at
+# most LANE_FEW elements: with few rows the chain of one row's steps is
+# the time, and more warps shorten its per-thread part (8 rows of 4096:
+# 4.05 us at 1 warp a row, 2.11 at 8; 256 rows of 2304: 2.48 us at 4,
+# 3.42 at 8; 1024 rows: 4.37 at 1, 5.51 at 2; my chip run, PR 15).  Rows
+# are independent, so the shape picks the speed only, never the bits.
 LANE_CAP = 128
 LANE_FEW = 12
 SMS = 132  # an H100's SMs
 FEW_WARPS = 8 * SMS
-SMEM_PER_SM = 233472  # shared memory of an SM (1 KB a CTA is reserved)
-SMEM_PER_CTA = 232448  # the most one CTA may take
 
 
-def quantize_shape(M: int, N: int, elem_bytes: int):
-    """(warps a CTA, ring stages, CTAs) of a quantize launch over (M, N)
-    elements of ``elem_bytes`` bytes: the register path (0 stages), M
-    CTAs of 1-8 warps."""
+def quantize_warps(M: int, N: int) -> int:
+    """Warps a row (and a CTA) of a quantize launch over (M, N)."""
     warps = 1
     while 32 * warps * LANE_CAP < N:
         warps *= 2
     while (warps < 8 and 32 * warps * LANE_FEW < N
            and 2 * warps * M <= FEW_WARPS):
         warps *= 2
-    return warps, 0, M
-
-
-def ring_ctas(M: int, N: int, elem_bytes: int, warps: int, stages: int):
-    """CTAs of a ring-path quantize over (M, N): as many as fit on the SMs
-    at once and no more than the rows need; None where one CTA's row
-    buffers do not fit in shared memory."""
-    slot = -(-N * elem_bytes // 128) * 128
-    smem = -(-8 * warps * stages // 128) * 128 + warps * stages * slot
-    if smem > SMEM_PER_CTA:
-        return None
-    per_sm = min(SMEM_PER_SM // (smem + 1024), 64 // warps, 32)
-    return min(-(-M // warps), SMS * per_sm)
+    return warps
 
 
 # the semantic probe (csrc/semantic_probe.cu): a cluster of 8 CTAs a batch

@@ -31,9 +31,9 @@
 //     max(|c|, 1e-12), Eq. 8, top-1 (first index on ties), top-2 and
 //     Eq. 9 sep.  The one cluster barrier (rank 0's mbarrier is
 //     initialised before any rank stores there) is split: arrived at
-//     first, waited on after the GAP, so it costs no wait.  A
-//     cluster.sync() at each end cost ~0.8 us each on the card
-//     (tools/diag_cluster_launch.py), pulling the partials after one more.
+//     first, waited on after the GAP.  Each cluster.sync() costs ~0.8 us
+//     on an H100 (tools/diag_cluster_launch.py), so rank 0 does not pull
+//     the partials between two of them.
 // The cluster size, and so the summation order, is a function of the
 // shape only (kernels/_build.py, probe_cluster), so the outputs are the
 // same bits on every call, capture and card.

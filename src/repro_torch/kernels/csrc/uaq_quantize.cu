@@ -7,24 +7,23 @@
 // (one read of x, one write of the wire fields); at the main path's few
 // rows (8 rows of 768-4096 elements: the relays of the three-tier
 // runtime) the chain of dependent steps after the launch: load the row,
-// reduce it, divide, pack, store.  So there are two paths:
-//   * register path (few rows): one warp a row and the row in its
-//     registers, at most kLaneCap elements a lane (rows up to 4096).  A
-//     lane owns units of U = 64 / BITS consecutive elements (8 at 8 bits,
-//     16 at 4 bits): one to four 16-byte loads, and one 8-byte payload
-//     store.  Every load of the row is issued before any is used.  The
-//     row's min and max take one redux.sync each (no shuffle tree, no
-//     shared memory, no barrier);
-//   * ring path (many rows): persistent CTAs, the warps striped over the
-//     rows (warp w of the grid takes rows w, w + nw, ...).  Each warp keeps
-//     a ring of `stages` row buffers in shared memory, filled by 1-D TMA
-//     bulk copies (cp.async.bulk) that complete on an mbarrier a slot, so
-//     the next rows are in flight while a row is reduced and packed.  A
-//     row is read from shared memory twice (min/max, then quantize), so
-//     it holds no registers and any width fits;
-//   * scalar path: odd widths and unaligned pointers (correctness-only
-//     shapes), a warp a row, one element a load, read twice (the second
-//     read from L1/L2).
+// reduce it, divide, pack, store.
+//   * A CTA of 1-8 warps takes one row and holds it in registers, at most
+//     kLaneCap elements a thread.  A thread owns units of U = 64 / BITS
+//     consecutive elements (8 at 8 bits, 16 at 4 bits): one to four
+//     16-byte loads, and one 8-byte payload store.  Every load of the row
+//     is issued before any is used.  The row's min and max take one
+//     redux.sync each a warp (no shuffle tree), and the warps of a row
+//     meet once in shared memory behind one barrier.  Few rows get
+//     more warps a row (kernels/_build.py, quantize_warps), since then the
+//     chain of one row's steps is the time; many rows one warp, a CTA a
+//     row, so that ~13 rows an SM are in flight at 150 registers a thread
+//     (88.7% of the bytes bound at 32768 rows of 2304 on an H100).  A
+//     persistent kernel whose warps kept rings of rows in shared memory,
+//     filled by TMA bulk copies, measured 131-134 us there against this
+//     path's 127 us (PERF.md, PR 15), and was dropped;
+//   * odd widths and unaligned pointers (correctness-only shapes): a warp
+//     a row, one element a load, read twice (the second from L1/L2).
 //
 // Numerics are those of the fused boundary kernel's row quantize (K1,
 // row_pass.cuh), so the wire fields are bit-equal to K1's and to the plain
@@ -41,13 +40,10 @@
 
 #include "common.cuh"
 
-#include <atomic>
-
 namespace {
 
-constexpr int kLaneCap = 128;  // row elements a lane holds
+constexpr int kLaneCap = 128;  // row elements a thread holds
 constexpr int kMaxWarps = 8;   // warps a CTA
-constexpr int kMaxDevices = 64;
 
 // ------------------------------------------------ row min/max -> params
 __device__ __forceinline__ float fmin_nan(float a, float b) {
@@ -79,28 +75,25 @@ struct RowQ {
 
 // The row parameters from each lane's lo / hi (NaN if the lane saw one;
 // +inf / -inf if it saw nothing): across the warp by redux.sync, then,
-// for a row held by a group of `wpr` warps (warp `wi` of group `grp`),
-// across the group through `mm` (3 words a warp of the CTA) and a named
-// barrier.
+// given `mm` (3 words a warp), across the CTA's warps, which hold one row.
 template <int BITS>
-__device__ __forceinline__ RowQ row_params(float lo, float hi, int wpr = 1,
-                                           int grp = 0, int wi = 0,
+__device__ __forceinline__ RowQ row_params(float lo, float hi,
                                            unsigned (*mm)[3] = nullptr) {
   unsigned nan = __reduce_or_sync(kFull, (unsigned)(lo != lo));
   unsigned klo = __reduce_min_sync(kFull, fkey(lo));
   unsigned khi = __reduce_max_sync(kFull, fkey(hi));
-  if (wpr > 1) {
-    unsigned(*gm)[3] = mm + grp * wpr;
+  const int warps = blockDim.x >> 5;
+  if (mm != nullptr && warps > 1) {
     if ((threadIdx.x & 31) == 0) {
-      gm[wi][0] = nan;
-      gm[wi][1] = klo;
-      gm[wi][2] = khi;
+      mm[threadIdx.x >> 5][0] = nan;
+      mm[threadIdx.x >> 5][1] = klo;
+      mm[threadIdx.x >> 5][2] = khi;
     }
-    group_sync(1 + grp, 32 * wpr);
-    for (int i = 0; i < wpr; ++i) {
-      nan |= gm[i][0];
-      klo = min(klo, gm[i][1]);
-      khi = max(khi, gm[i][2]);
+    __syncthreads();
+    for (int i = 0; i < warps; ++i) {
+      nan |= mm[i][0];
+      klo = min(klo, mm[i][1]);
+      khi = max(khi, mm[i][2]);
     }
   }
   lo = funkey(klo);
@@ -184,7 +177,7 @@ uaq_quantize_rows_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
       }
     }
   }
-  const RowQ p = row_params<BITS>(lo, hi, gstride >> 5, 0, g >> 5, mm);
+  const RowQ p = row_params<BITS>(lo, hi, mm);
   if (g == 0) {
     scale[row] = p.sc;
     zp[row] = p.z;
@@ -203,127 +196,6 @@ uaq_quantize_rows_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
       if (gstride * k >= nu) break;
       if (g + gstride * k < nu)
         pr[g + gstride * k] = pack_unit<BITS, false>(v[k], p);
-    }
-  }
-}
-
-// ------------------------------------------------ ring path
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
-      "@!p bra WAIT;\n\t}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Row `row` into the slot at `dst`: one bulk copy of `bytes` (a multiple
-// of 16, 16-byte aligned at both ends) that completes on `bar`.
-__device__ __forceinline__ void load_row(uint32_t dst, const void* src,
-                                         unsigned bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Shared memory of the ring path: the mbarriers (8 bytes each, padded to
-// 128), then warps * stages row slots of 128-byte-aligned row bytes.
-__host__ __device__ __forceinline__ unsigned ring_bar_bytes(int warps,
-                                                            int stages) {
-  return (8u * warps * stages + 127u) & ~127u;
-}
-
-__host__ __device__ __forceinline__ unsigned ring_slot_bytes(unsigned row_bytes) {
-  return (row_bytes + 127u) & ~127u;
-}
-
-template <typename T, int BITS>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-uaq_quantize_ring_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
-                         float* __restrict__ scale, float* __restrict__ zp,
-                         int M, int D, int stages) {
-  using Un = UnitOf<T, BITS>;
-  constexpr int U = Un::U, NL = Un::NL;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const unsigned rb = (unsigned)D * sizeof(T);
-  const unsigned slot = ring_slot_bytes(rb);
-  const uint32_t bars = smem_addr(smem) + 8u * warp * stages;
-  const uint32_t bufs = smem_addr(smem) + ring_bar_bytes(warps, stages) +
-                        (unsigned)(warp * stages) * slot;
-  const unsigned char* wbuf =
-      smem + ring_bar_bytes(warps, stages) + (size_t)(warp * stages) * slot;
-  const int gw = blockIdx.x * warps + warp;
-  const int nw = gridDim.x * warps;
-  const int n = gw < M ? (M - 1 - gw) / nw + 1 : 0;  // rows of this warp
-  const int nu = D / U;
-  if (lane == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(bars + 8u * s, 1u);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int i = 0; i < stages && i < n; ++i)
-      load_row(bufs + i * slot, x + (size_t)(gw + i * nw) * D, rb,
-               bars + 8u * i);
-  }
-  __syncwarp();
-  for (int i = 0; i < n; ++i) {
-    const int s = i % stages;
-    mbar_wait(bars + 8u * s, (uint32_t)((i / stages) & 1));
-    const uint4* xs = reinterpret_cast<const uint4*>(wbuf + (size_t)s * slot);
-    float lo = INFINITY, hi = -INFINITY;
-#pragma unroll 4
-    for (int u = lane; u < nu; u += 32) {
-      uint4 raw[NL];
-      float v[U];
-#pragma unroll
-      for (int j = 0; j < NL; ++j) raw[j] = xs[u * NL + j];
-      widen_unit<T, BITS>(raw, v);
-#pragma unroll
-      for (int e = 0; e < U; ++e) {
-        lo = fmin_nan(lo, v[e]);
-        hi = fmax_nan(hi, v[e]);
-      }
-    }
-    const RowQ p = row_params<BITS>(lo, hi);
-    const size_t row = (size_t)gw + (size_t)i * nw;
-    if (lane == 0) {
-      scale[row] = p.sc;
-      zp[row] = p.z;
-    }
-    uint2* pr = reinterpret_cast<uint2*>(payload + row * (size_t)(nu * 8));
-#pragma unroll 4
-    for (int u = lane; u < nu; u += 32) {
-      uint4 raw[NL];
-      float v[U];
-#pragma unroll
-      for (int j = 0; j < NL; ++j) raw[j] = xs[u * NL + j];
-      widen_unit<T, BITS>(raw, v);
-      pr[u] = p.fast ? pack_unit<BITS, true>(v, p) : pack_unit<BITS, false>(v, p);
-    }
-    // every lane has read the slot: refill it with the warp's row i + stages
-    __syncwarp();
-    if (lane == 0 && i + stages < n) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      load_row(bufs + s * slot, x + (row + (size_t)stages * nw) * D, rb,
-               bars + 8u * s);
     }
   }
 }
@@ -374,43 +246,10 @@ uaq_quantize_scalar_kernel(const T* __restrict__ x,
 }
 
 // ------------------------------------------------ host side
-// Before the ring kernel's first launch on a device: all of L1 as shared
-// memory and leave to use it; returns the dynamic bytes a CTA may take.
-template <typename T, int BITS>
-cudaError_t ring_max_smem(int* md_out) {
-  static std::atomic<int> max_dyn[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int md = max_dyn[dev].load(std::memory_order_acquire);
-  if (md == 0) {
-    auto kernel = uaq_quantize_ring_kernel<T, BITS>;
-    int optin = 0;
-    cudaFuncAttributes fa;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)fa.sharedSizeBytes);
-    if (e != cudaSuccess) return e;
-    md = optin - (int)fa.sharedSizeBytes;
-    max_dyn[dev].store(md, std::memory_order_release);
-  }
-  *md_out = md;
-  return cudaSuccess;
-}
-
 template <typename T, int BITS>
 cudaError_t launch_quantize(const void* x, void* payload, void* scale,
-                            void* zp, int M, int D, int warps, int stages,
-                            int ctas, cudaStream_t st) {
+                            void* zp, int M, int D, int warps,
+                            cudaStream_t st) {
   if (warps < 1 || warps > kMaxWarps) return cudaErrorInvalidValue;
   constexpr int U = UnitOf<T, BITS>::U;
   const bool vec = D % U == 0 && aligned(x, 16) && aligned(payload, 8);
@@ -422,21 +261,10 @@ cudaError_t launch_quantize(const void* x, void* payload, void* scale,
     const unsigned grid = (unsigned)((M + warps - 1) / warps);
     uaq_quantize_scalar_kernel<T, BITS><<<grid, 32 * warps, 0, st>>>(
         xt, pt, sc, zt, M, D);
-  } else if (stages == 0) {
+  } else {
     if (D > 32 * warps * kLaneCap) return cudaErrorInvalidValue;
     uaq_quantize_rows_kernel<T, BITS><<<M, 32 * warps, 0, st>>>(xt, pt, sc,
                                                                 zt, D);
-  } else {
-    if (stages < 2 || stages > 4 || ctas < 1) return cudaErrorInvalidValue;
-    const size_t smem = ring_bar_bytes(warps, stages) +
-                        (size_t)warps * stages *
-                            ring_slot_bytes((unsigned)D * sizeof(T));
-    int md = 0;
-    const cudaError_t e = ring_max_smem<T, BITS>(&md);
-    if (e != cudaSuccess) return e;
-    if (smem > (size_t)md) return cudaErrorInvalidValue;
-    uaq_quantize_ring_kernel<T, BITS><<<ctas, 32 * warps, smem, st>>>(
-        xt, pt, sc, zt, M, D, stages);
   }
   return cudaGetLastError();
 }
@@ -444,41 +272,35 @@ cudaError_t launch_quantize(const void* x, void* payload, void* scale,
 template <typename T>
 cudaError_t launch_quantize_t(const void* x, void* payload, void* scale,
                               void* zp, int M, int D, int bits, int warps,
-                              int stages, int ctas, cudaStream_t st) {
+                              cudaStream_t st) {
   if (bits == 4)
-    return launch_quantize<T, 4>(x, payload, scale, zp, M, D, warps, stages,
-                                 ctas, st);
+    return launch_quantize<T, 4>(x, payload, scale, zp, M, D, warps, st);
   if (bits == 8)
-    return launch_quantize<T, 8>(x, payload, scale, zp, M, D, warps, stages,
-                                 ctas, st);
+    return launch_quantize<T, 8>(x, payload, scale, zp, M, D, warps, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x (M, N) of `dtype` (enum DType) -> payload (M, ceil(N * bits / 8))
-// uint8, scale and zp (M,) float32, in one launch on `stream`.
-// stages == 0: the register path, M CTAs of `warps` warps (1-8), a CTA a
-// row (N <= 4096 * warps; `ctas` is not read); stages 2-4: the ring path
-// over `ctas` persistent CTAs of `warps` warps, each warp with `stages`
-// row buffers.  Odd or unaligned widths take the scalar path, CTAs of
-// `warps` warps and a warp a row, whatever `stages` says.
+// uint8, scale and zp (M,) float32, in one launch on `stream`: M CTAs of
+// `warps` warps (1-8), a CTA a row (N <= 4096 * warps); odd or unaligned
+// widths take CTAs of `warps` warps and a warp a row.
 extern "C" int coach_uaq_quantize(const void* x, void* payload, void* scale,
                                   void* zp, int M, int N, int bits, int warps,
-                                  int stages, int ctas, int dtype,
-                                  void* stream) {
+                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
       return (int)launch_quantize_t<float>(x, payload, scale, zp, M, N, bits,
-                                           warps, stages, ctas, st);
+                                           warps, st);
     case kBF16:
-      return (int)launch_quantize_t<__nv_bfloat16>(
-          x, payload, scale, zp, M, N, bits, warps, stages, ctas, st);
+      return (int)launch_quantize_t<__nv_bfloat16>(x, payload, scale, zp, M,
+                                                   N, bits, warps, st);
     case kF16:
       return (int)launch_quantize_t<__half>(x, payload, scale, zp, M, N, bits,
-                                            warps, stages, ctas, st);
+                                            warps, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -36,11 +36,10 @@ def uaq_quantize(x: torch.Tensor, bits: int):
     payload = torch.empty((M, P), dtype=torch.uint8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     zp = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    warps, stages, ctas = KB.quantize_shape(M, N, x.element_size())
     with torch.cuda.device(x.device):
         err = KB.lib().coach_uaq_quantize(
             x.data_ptr(), payload.data_ptr(), scale.data_ptr(),
-            zp.data_ptr(), M, N, bits, warps, stages, ctas,
+            zp.data_ptr(), M, N, bits, KB.quantize_warps(M, N),
             KB.DTYPE_CODES[x.dtype], KB.stream_of(x))
     KB.check(err, "uaq_quantize")
     KB.LAUNCHES["uaq_quantize"] += 1

@@ -247,9 +247,8 @@ def test_quantize_on_signed_zeros_and_nan_matches_plain(cuda, M, N, bits,
     """The quantize's min and max order -0.0 below +0.0 and carry a NaN to
     the row's lo and hi: codes and scale are the plain version's bits, zp
     its value (-0.0 == +0.0), and a row holding a NaN gets NaN scale and
-    zp and all-zero codes, as torch.amin / clamp / .to(uint8) give.  On
-    the register path (8 rows), the ring path (2048) and the scalar path
-    (odd width)."""
+    zp and all-zero codes, as torch.amin / clamp / .to(uint8) give.  At
+    8 rows (several warps a row), 2048 (one) and an odd width."""
     x = _signed_zero_and_nan_rows(M, N, cuda).to(dtype)
     got = uaq_quantize(x, bits)
     want = ref.uaq_quantize_ref(x, bits)
@@ -267,26 +266,23 @@ def test_quantize_on_signed_zeros_and_nan_matches_plain(cuda, M, N, bits,
                                  (5, 9216), (40, 4608), (33, 4096)])
 def test_quantize_paths_match_plain_version(cuda, M, N, bits):
     """The launch shape the wrapper picks and every other one at the same
-    rows (the register path at 1-8 warps a row, the ring path at 1 and 4
-    warps a CTA and 2 and 4 stages) give the plain version's bits."""
+    rows (1-8 warps a row, where a row fits) give the plain version's
+    bits."""
     x = torch.from_numpy((np.random.default_rng(M + N).standard_normal(
         (M, N)) * 2.0 + 0.3).astype(np.float32)).to(cuda)
     want = ref.uaq_quantize_ref(x, bits)
     for g, w in zip(uaq_quantize(x, bits), want):
         assert torch.equal(g, w)
     p, s, z = (torch.empty_like(t) for t in want)
-    opts = [(w, 0, M) for w in (1, 2, 4, 8) if 32 * w * KB.LANE_CAP >= N]
-    opts += [(w, st, KB.ring_ctas(M, N, 4, w, st)) for w in (1, 4)
-             for st in (2, 4)]
-    for w, st, c in opts:
-        if c is None:
+    for w in (1, 2, 4, 8):
+        if 32 * w * KB.LANE_CAP < N:
             continue
         KB.check(KB.lib().coach_uaq_quantize(
             x.data_ptr(), p.data_ptr(), s.data_ptr(), z.data_ptr(), M, N,
-            bits, w, st, c, 0, KB.stream_of(x)), "uaq_quantize")
+            bits, w, 0, KB.stream_of(x)), "uaq_quantize")
         torch.cuda.synchronize()
         for g, h in zip((p, s, z), want):
-            assert torch.equal(g, h), (w, st, c)
+            assert torch.equal(g, h), w
 
 
 @pytest.mark.parametrize("cluster", [8, 16])

@@ -320,44 +320,28 @@ def _widths():
     return sorted({get_config(a).d_model for a in ARCHS} | {KB.MAX_ROW})
 
 
-@pytest.mark.parametrize("elem_bytes", [4, 2])
-def test_quantize_shape_depends_on_the_shape_only(elem_bytes):
-    """K3's launch shape for every config's d_model and the widest row:
-    the register path, a CTA a row, with enough warps that a thread holds
-    at most LANE_CAP elements, and, while the grid stays within FEW_WARPS
-    warps, enough that it holds at most LANE_FEW (the chain of one row's
-    steps is then the time); a ring-path launch fits one CTA's shared
-    memory and the card."""
-    assert KB.quantize_shape(8, 768, 4) == (2, 0, 8)  # three-tier relays
-    assert KB.quantize_shape(8, 2304, 2) == (8, 0, 8)  # serve, gemma2-2b
-    assert KB.quantize_shape(8, 4096, 4) == (8, 0, 8)  # mixtral-8x7b
-    assert KB.quantize_shape(256, 2304, 4) == (4, 0, 256)
-    assert KB.quantize_shape(1024, 2304, 4) == (1, 0, 1024)
-    assert KB.quantize_shape(32768, 2304, 4) == (1, 0, 32768)
-    assert KB.quantize_shape(32768, KB.MAX_ROW, 2) == (4, 0, 32768)
-    assert KB.ring_ctas(32768, 2304, 4, 4, 3) == 264  # 2 CTAs an SM
-    assert KB.ring_ctas(32768, 2304, 2, 4, 3) == 528
-    assert KB.ring_ctas(8, KB.MAX_ROW, 4, 4, 2) is None  # 36 KB rows
+def test_quantize_warps_depend_on_the_shape_only():
+    """K3's warps a row for every config's d_model and the widest row:
+    enough that a thread holds at most LANE_CAP elements, and, while the
+    grid stays within FEW_WARPS warps, enough that it holds at most
+    LANE_FEW (the chain of one row's steps is then the time)."""
+    assert KB.quantize_warps(8, 768) == 2  # three-tier relays
+    assert KB.quantize_warps(8, 2304) == 8  # serve, gemma2-2b
+    assert KB.quantize_warps(8, 4096) == 8  # mixtral-8x7b
+    assert KB.quantize_warps(256, 2304) == 4
+    assert KB.quantize_warps(1024, 2304) == 1
+    assert KB.quantize_warps(32768, 2304) == 1
+    assert KB.quantize_warps(32768, KB.MAX_ROW) == 4
     for N in _widths():
         for M in (1, 8, 256, 1024, 1025, 32768):
-            warps, stages, ctas = KB.quantize_shape(M, N, elem_bytes)
-            assert (warps, stages, ctas) == KB.quantize_shape(
-                M, N, elem_bytes)
-            assert warps in (1, 2, 4, 8) and stages == 0 and ctas == M
+            warps = KB.quantize_warps(M, N)
+            assert warps == KB.quantize_warps(M, N) and warps in (1, 2, 4, 8)
             need = 1  # warps that hold the row
             while 32 * need * KB.LANE_CAP < N:
                 need *= 2
             assert warps >= need
             assert warps == need or M * warps <= KB.FEW_WARPS
             assert warps == need or 16 * warps * KB.LANE_FEW < N
-            for w in (1, 2, 4):
-                for st in (2, 3):
-                    c = KB.ring_ctas(M, N, elem_bytes, w, st)
-                    slot = -(-N * elem_bytes // 128) * 128
-                    fits = w * st * slot + 128 <= KB.SMEM_PER_CTA
-                    assert (c is not None) == fits
-                    assert c is None or 1 <= c <= min(-(-M // w),
-                                                      32 * KB.SMS)
 
 
 def test_probe_cluster_depends_on_the_shape_only():
@@ -397,8 +381,8 @@ def test_probe_and_quantize_take_no_counters_or_workspace():
         "x", "centers", "sep", "best", "sims", "B", "S", "D", "L",
         "cluster", "dtype", "stream"]
     assert names["coach_uaq_quantize"] == [
-        "x", "payload", "scale", "zp", "M", "N", "bits", "warps", "stages",
-        "ctas", "dtype", "stream"]
+        "x", "payload", "scale", "zp", "M", "N", "bits", "warps", "dtype",
+        "stream"]
     for name in ("coach_semantic_probe", "coach_uaq_quantize"):
         assert not {"ws", "counters", "rows_per_cta", "wpr"} & set(
             names[name])

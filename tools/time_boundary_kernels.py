@@ -10,9 +10,8 @@ turns (old, new, new, old).  Times K1-K4 and their plain versions with
 CUDA events, median) at serve's shape (1, 8, D, 16) for D = 2304, 768
 and 4096 and at the large shape (8, 4096, 2304, 16), at 8 and 4 bits,
 beside the bytes bound.  With ``--sweep`` (a tree whose quantize and
-probe entry points take their launch shape): K3 on the register path at
-1-8 warps a row and on the ring path at 2 and 4 warps a CTA and 2 and 3
-stages, for 8 to 32768 rows of 2304, serve's rows and rows of 8192, and
+probe entry points take their launch shape): K3 at 1-8 warps a row, for
+8 to 32768 rows of 2304, serve's rows and rows of 8192, and
 K4 with clusters of 8 and of 16 at serve's shapes, at 1-8 batch rows of
 4096 tokens and at serve's with one center or one row or a tiny width,
 each checked against the wrapper's output first.  Prints one JSON object a
@@ -85,29 +84,24 @@ def sweep(torch, CS, KB, uaq, semantic_cache, emit):
             p = torch.empty((M, P), dtype=torch.uint8, device="cuda")
             s = torch.empty((M, 1), device="cuda")
             z = torch.empty((M, 1), device="cuda")
-            opts = [(w, 0, M) for w in (1, 2, 4, 8)
-                    if 32 * w * KB.LANE_CAP >= N]
-            opts += [(w, st, KB.ring_ctas(M, N, 4, w, st))
-                     for w in (2, 4) for st in (2, 3)]
-
-            def call(w=1, st=0, c=1):
+            def call(w):
                 KB.check(lib.coach_uaq_quantize(
                     x.data_ptr(), p.data_ptr(), s.data_ptr(), z.data_ptr(),
-                    M, N, bits, w, st, c, 0, KB.stream_of(x)), "sweep")
+                    M, N, bits, w, 0, KB.stream_of(x)), "sweep")
             nbytes, ops = CS.work("uaq_quantize", 1, M, N, 16, bits)
-            for w, st, c in opts:
-                if c is None:
+            for w in (1, 2, 4, 8):
+                if 32 * w * KB.LANE_CAP < N:
                     continue
-                call(w, st, c)
+                call(w)
                 torch.cuda.synchronize()
                 for g, h in zip((p, s, z), want):
-                    assert torch.equal(g, h), ("K3 sweep differs", M, N, w, st)
+                    assert torch.equal(g, h), ("K3 sweep differs", M, N, w)
                 big = M * N > 1 << 22
-                ms = CS.device_ms(torch, lambda: call(w, st, c),
+                ms = CS.device_ms(torch, lambda: call(w),
                                   3 if big else 200, 10 if big else 20)
                 emit(kernel="uaq_quantize", sweep=True, shape=[M, N],
-                     bits=bits, warps=w, stages=st, ctas=c, ms=ms,
-                     bound_ms=nbytes / CS.HBM_BYTES_PER_S * 1e3)
+                     bits=bits, warps=w, chosen=w == KB.quantize_warps(M, N),
+                     ms=ms, bound_ms=nbytes / CS.HBM_BYTES_PER_S * 1e3)
     # serve's shapes, the large one, one batch row of many tokens, and
     # serve's with one center, one row, or both at a tiny width (what the
     # launch, the GAP and the centers each add)
