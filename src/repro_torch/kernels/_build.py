@@ -194,18 +194,20 @@ def quantize_warps(M: int, N: int) -> int:
 
 # the semantic probe (csrc/semantic_probe.cu): a cluster of 8 CTAs a batch
 # row, or of 16 where a batch row holds PROBE_BIG elements or more and
-# the B clusters of 16 are all resident at once: its CTAs take an SM each,
-# and an H100 holds CLUSTERS_16 such clusters (cudaOccupancyMaxActiveClusters,
-# tools/diag_cluster_launch.py); more go in a second wave, which made the
-# large shape (8, 4096, 2304) 126 us with 16 against 105 with 8.  A
-# function of the shape only: the cluster size sets the summation order.
+# there are at most C16_ROWS batch rows.  Its CTAs take an SM each, and an
+# H100 holds 7 clusters of 16 such CTAs at once against 15 of 8
+# (cudaOccupancyMaxActiveClusters, tools/diag_cluster_launch.py).  Over
+# rows of 4096 x 2304, 16 measured 43.3 / 62.1 / 96.6 / 119.6 us at B = 1
+# / 4 / 7 / 8 against 45.2 / 62.7 / 94.2 / 102.1 with 8 (my chip run, PR
+# 15).  A function of the shape only: the cluster size sets the
+# summation order.
 PROBE_BIG = 1 << 20
-CLUSTERS_16 = 7
+C16_ROWS = 4
 
 
 def probe_cluster(B: int, S: int, D: int) -> int:
     """CTAs in the cluster of each batch row of a probe over (B, S, D)."""
-    return 16 if S * D >= PROBE_BIG and B <= CLUSTERS_16 else 8
+    return 16 if S * D >= PROBE_BIG and B <= C16_ROWS else 8
 
 
 def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:

@@ -346,18 +346,18 @@ def test_quantize_warps_depend_on_the_shape_only():
 
 def test_probe_cluster_depends_on_the_shape_only():
     """K4's cluster size: 8 CTAs a batch row at serve's shapes and for
-    more batch rows than clusters of 16 the card holds at once, 16 where a
-    few batch rows hold many tokens; a function of (B, S, D) only, for
-    every config's d_model."""
+    more than C16_ROWS batch rows, 16 where a few batch rows hold many
+    tokens; a function of (B, S, D) only, for every config's d_model."""
     assert KB.probe_cluster(1, 8, 2304) == 8  # serve
     assert KB.probe_cluster(1, 4096, 2304) == 16  # a batch row of many rows
+    assert KB.probe_cluster(4, 4096, 2304) == 16
     assert KB.probe_cluster(8, 4096, 2304) == 8  # 8 clusters of 16: 2 waves
     assert KB.probe_cluster(300, 8, 2304) == 8
     for D in _widths():
         for B, S in ((1, 1), (1, 8), (8, 128), (8, 4096), (64, 4096)):
             C = KB.probe_cluster(B, S, D)
             assert C in (8, 16) and C == KB.probe_cluster(B, S, D)
-            big = S * D >= KB.PROBE_BIG and B <= KB.CLUSTERS_16
+            big = S * D >= KB.PROBE_BIG and B <= KB.C16_ROWS
             assert (C == 16) == big
 
 
