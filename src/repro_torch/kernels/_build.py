@@ -173,7 +173,8 @@ def check_row_width(n: int) -> None:
 # most LANE_FEW elements: with few rows the chain of one row's steps is
 # the time, and more warps shorten its per-thread part (8 rows of 4096:
 # 4.05 us at 1 warp a row, 2.11 at 8; 256 rows of 2304: 2.48 us at 4,
-# 3.42 at 8; 1024 rows: 4.37 at 1, 5.51 at 2; my chip run, PR 15).  Rows
+# 3.42 at 8; 1024 rows: 4.37 at 1, 5.51 at 2; H100,
+# tools/time_boundary_kernels.py --sweep).  Rows
 # are independent, so the shape picks the speed only, never the bits.
 LANE_CAP = 128
 LANE_FEW = 12
@@ -198,9 +199,9 @@ def quantize_warps(M: int, N: int) -> int:
 # H100 holds 7 clusters of 16 such CTAs at once against 15 of 8
 # (cudaOccupancyMaxActiveClusters, tools/diag_cluster_launch.py).  Over
 # rows of 4096 x 2304, 16 measured 43.3 / 62.1 / 96.6 / 119.6 us at B = 1
-# / 4 / 7 / 8 against 45.2 / 62.7 / 94.2 / 102.1 with 8 (my chip run, PR
-# 15).  A function of the shape only: the cluster size sets the
-# summation order.
+# / 4 / 7 / 8 against 45.2 / 62.7 / 94.2 / 102.1 with 8 (H100,
+# tools/time_boundary_kernels.py --sweep).  A function of the shape only:
+# the cluster size sets the summation order.
 PROBE_BIG = 1 << 20
 C16_ROWS = 4
 

@@ -21,7 +21,7 @@
 //     (88.7% of the bytes bound at 32768 rows of 2304 on an H100).  A
 //     persistent kernel whose warps kept rings of rows in shared memory,
 //     filled by TMA bulk copies, measured 131-134 us there against this
-//     path's 127 us (PERF.md, PR 15), and was dropped;
+//     path's 127 us (PERF.md §6), and was dropped;
 //   * odd widths and unaligned pointers (correctness-only shapes): a warp
 //     a row, one element a load, read twice (the second from L1/L2).
 //
