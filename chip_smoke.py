@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the last line):
      of back-to-back launches, CUDA events, median) beside the
      bytes/operations bound, at serve's shape on gemma2-2b, mamba2-130m
      and mixtral-8x7b widths and at a large shape, and require one kernel
-     launch per call of the fused boundary, quantize and probe;
+     launch per call of the fused boundary, quantize and probe (one
+     kernel node in a graph captured from a call, beside what the fused
+     boundary's counters add there, and no other kernel under the
+     profiler);
   4. serve 24 requests on full-width gemma2-2b (random weights from a
      seed) through ``repro_torch.launch.serve.serve`` and require the
      fused boundary and dequantize kernels to have launched;
@@ -221,10 +224,11 @@ def check_kernels(torch, K):
 def check_signed_zero_and_nan(torch, K):
     """The quantize on rows whose min or max is -0.0 or +0.0 (both signs in
     one row, and either alone), and on rows holding a NaN, against the
-    plain version in every activation dtype at both widths of the
-    register path and the ring path: codes and scale bit-equal, zp equal
-    as values (-0.0 == +0.0: the kernel's min orders -0.0 first, torch's
-    may return either), NaN where the plain version has NaN."""
+    plain version in every activation dtype, at rows of several warps (8
+    rows), of one warp (2048 rows) and of the scalar path (an odd width),
+    at both bit widths: codes and scale bit-equal, zp equal as values
+    (-0.0 == +0.0: the kernel's min orders -0.0 first, torch's may return
+    either), NaN where the plain version has NaN."""
     ref, U = K["ref"], K["uaq"]
     gen = torch.Generator(device="cuda").manual_seed(5)
     for M, N in ((8, 768), (8, 2304), (2048, 2304), (7, 33)):
@@ -447,6 +451,32 @@ def device_profile(torch, fn, n):
     rows = [(e.key, e.count / n, dev_us(e) / 1e3 / n)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sorted(rows, key=lambda r: -r[2]), wall
+
+
+def graph_node_types(torch, fn):
+    """The types of the nodes of a CUDA graph captured from one call of
+    ``fn`` (CUgraphNodeType: 0 a kernel, 1 a copy, 2 a memset), read from
+    the driver: a count of launches that does not rest on the profiler's
+    activity records, which have once come one short or over in 50
+    calls."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    del graph
+    return types
 
 
 def profile_requests(torch, request, n):
@@ -991,18 +1021,18 @@ def main() -> int:
             x, c, 8)), ("uaq_quantize", lambda: uaq.uaq_quantize(
                 x.reshape(-1, SERVE_SHAPE[2]), 8)),
             ("semantic_probe", lambda: semantic_cache.semantic_probe(x, c))):
-        # a profile that lost or doubled one kernel record is taken again
-        for attempt in range(2):
-            rows, _ = device_profile(torch, fn, 50)
-            parts = [f"{KERNEL_NAME.search(n).group()} x{count:.0f} "
-                     f"{ms * 1e3:.2f} us" for n, count, ms in rows]
-            log(f"  {name} at {SERVE_SHAPE}, per call (profiler, eager): "
-                + "; ".join(parts))
-            if [r[1] for r in rows] == [1.0]:
-                break
-            log(f"  kernel records per call: {[r[1] for r in rows]}")
-        assert [r[1] for r in rows] == [1.0], \
-            f"{name} should be one kernel launch per call: {parts}"
+        rows, _ = device_profile(torch, fn, 50)
+        parts = [f"{KERNEL_NAME.search(n).group()} x{count:.2f} "
+                 f"{ms * 1e3:.2f} us" for n, count, ms in rows]
+        nodes = graph_node_types(torch, fn)
+        log(f"  {name} at {SERVE_SHAPE}, per call (profiler, eager): "
+            + "; ".join(parts) + f"; captured: node types {nodes}")
+        # the capture's own counter buffer is filled inside it
+        extra = graph_node_types(torch, lambda: KB.arrival_counters(
+            x, 64)) if name == "fused_boundary" else []
+        assert len(rows) == 1 and sorted(nodes) == sorted(extra + [0]), \
+            f"{name} should be one kernel launch per call: {parts}, " \
+            f"graph node types {nodes} (0: a kernel)"
 
     launches = {}  # summed over every phase's main-path run
 

@@ -47,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "coach_fused_boundary": [_P] * 11 + [_I] * 8 + [_P],
     "coach_uaq_quantize": [_P] * 4 + [_I] * 5 + [_P],
-    "coach_semantic_probe": [_P] * 5 + [_I] * 6 + [_P],
+    "coach_semantic_probe": [_P] * 5 + [_I] * 5 + [_P],
     "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
     "coach_capture_id": [_P, _P],
 }
@@ -191,24 +191,6 @@ def quantize_warps(M: int, N: int) -> int:
            and 2 * warps * M <= FEW_WARPS):
         warps *= 2
     return warps
-
-
-# the semantic probe (csrc/semantic_probe.cu): a cluster of 8 CTAs a batch
-# row, or of 16 where a batch row holds PROBE_BIG elements or more and
-# there are at most C16_ROWS batch rows.  Its CTAs take an SM each, and an
-# H100 holds 7 clusters of 16 such CTAs at once against 15 of 8
-# (cudaOccupancyMaxActiveClusters, tools/diag_cluster_launch.py).  Over
-# rows of 4096 x 2304, 16 measured 43.3 / 62.1 / 96.6 / 119.6 us at B = 1
-# / 4 / 7 / 8 against 45.2 / 62.7 / 94.2 / 102.1 with 8 (H100,
-# tools/time_boundary_kernels.py --sweep).  A function of the shape only:
-# the cluster size sets the summation order.
-PROBE_BIG = 1 << 20
-C16_ROWS = 4
-
-
-def probe_cluster(B: int, S: int, D: int) -> int:
-    """CTAs in the cluster of each batch row of a probe over (B, S, D)."""
-    return 16 if S * D >= PROBE_BIG and B <= C16_ROWS else 8
 
 
 def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:

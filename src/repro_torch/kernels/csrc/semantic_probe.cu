@@ -8,9 +8,8 @@
 // memory at many rows; at serve's few rows (S = 8) the latency of two
 // dependent loads (x, then the centers) and of the cross-CTA reduction.
 //
-// Design: a thread-block cluster of C CTAs (8, or 16 where the shape has
-// the work to fill the card) a batch row; no workspace, no arrival
-// counter, no global atomics.
+// Design: a thread-block cluster of C = 8 CTAs a batch row (the largest
+// portable cluster); no workspace, no arrival counter, no global atomics.
 //   * CTA r owns a column slice of D: whole 16-byte vectors of x (4
 //     float32 or 8 16-bit values; single elements on the scalar path),
 //     nvec / C of them, the remainder in the last rank.  Its threads
@@ -32,11 +31,13 @@
 //     Eq. 9 sep.  The one cluster barrier (rank 0's mbarrier is
 //     initialised before any rank stores there) is split: arrived at
 //     first, waited on after the GAP.  Each cluster.sync() costs ~0.8 us
-//     on an H100 (tools/diag_cluster_launch.py), so rank 0 does not pull
-//     the partials between two of them.
-// The cluster size, and so the summation order, is a function of the
-// shape only (kernels/_build.py, probe_cluster), so the outputs are the
-// same bits on every call, capture and card.
+//     on an H100 (PERF.md), so rank 0 does not pull the partials
+//     between two of them.
+// The cluster size, and so the summation order, is fixed, so the outputs
+// are the same bits on every call, capture and card.  Clusters of 16 (not
+// portable) were measured too: 17% slower at (8, 4096, 2304), even or
+// slower at 4 and 7 batch rows of 4096 tokens, ~5% faster at one, a shape
+// no caller runs (PERF.md).
 
 #include "common.cuh"
 
@@ -52,16 +53,16 @@ namespace {
 constexpr int kProbeThreads = 512;
 constexpr int kProbeWarps = kProbeThreads / 32;
 constexpr int kRowsAtOnce = 16;  // rows a thread loads before adding
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 8;  // CTAs a batch row
 constexpr int kCenterLoads = 4;  // center loads a lane issues at a time
 constexpr int kMaxDevices = 64;
 
 // Shared memory (floats): rank 0's mbarrier (2 floats, padded to 4), the
-// partials of every rank pc [C][2L + 1] (filled in rank 0 by all ranks),
+// partials of every rank pc [kCluster][2L + 1] (filled in rank 0 by all ranks),
 // sims [L], then the slice of f [W] and the row groups' sums [G * W],
 // 16-byte aligned.  The same layout in every CTA of a launch.
-__host__ __device__ __forceinline__ int probe_fs_offset(int L, int C) {
-  return (4 + C * (2 * L + 1) + L + 3) & ~3;
+__host__ __device__ __forceinline__ int probe_fs_offset(int L) {
+  return (4 + kCluster * (2 * L + 1) + L + 3) & ~3;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -121,8 +122,8 @@ semantic_probe_kernel(const T* __restrict__ x,
                       float* __restrict__ sims, int S, int D, int L) {
   constexpr int CW = VE == 1 ? 1 : 4;
   extern __shared__ __align__(16) float sm[];
+  constexpr int C = kCluster;
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
   const int t = threadIdx.x;
@@ -137,7 +138,7 @@ semantic_probe_kernel(const T* __restrict__ x,
   const uint32_t bar = smem_addr(sm);
   float* pc = sm + 4;
   float* sl = pc + C * NP;
-  float* fs = sm + probe_fs_offset(L, C);
+  float* fs = sm + probe_fs_offset(L);
   float* part = fs + ((W + 3) & ~3);
   // rank 0's barrier counts the C ranks' partials in; the cluster
   // barrier, arrived at here and waited on before the first remote
@@ -305,26 +306,24 @@ semantic_probe_kernel(const T* __restrict__ x,
 // ------------------------------------------------ host side
 // Dynamic shared memory of a launch, in bytes (the last rank's slice is
 // the widest).
-size_t probe_smem(int D, int L, int C, int VE) {
+size_t probe_smem(int D, int L, int VE) {
   const int nvec = D / VE;
-  const int widest = nvec - (C - 1) * (nvec / C);
+  const int widest = nvec - (kCluster - 1) * (nvec / kCluster);
   const int W = ((widest * VE + 3) & ~3);
   // the row groups' sums: G * nv <= 512 vectors, or nv when wider
   const int parts = widest > kProbeThreads ? widest : kProbeThreads;
   return sizeof(float) *
-         ((size_t)probe_fs_offset(L, C) + W + (size_t)parts * VE);
+         ((size_t)probe_fs_offset(L) + W + (size_t)parts * VE);
 }
 
 template <typename T, int VE>
 cudaError_t launch_probe(const void* x, const void* centers, void* sep,
                          void* best, void* sims, int B, int S, int D, int L,
-                         int C, cudaStream_t st) {
+                         cudaStream_t st) {
   auto kernel = semantic_probe_kernel<T, VE>;
-  // once per device, before the first launch there: clusters of 16 (not
-  // portable), and leave to use all of the dynamic shared memory;
-  // clusters of 16 must be able to run (checked on the first such launch)
+  // once per device, before the first launch there: leave to use all of
+  // the dynamic shared memory
   static std::atomic<int> max_dyn[kMaxDevices];
-  static std::atomic<int> c16_ok[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -338,36 +337,26 @@ cudaError_t launch_probe(const void* x, const void* centers, void* sep,
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin - (int)fa.sharedSizeBytes);
     if (e != cudaSuccess) return e;
     md = optin - (int)fa.sharedSizeBytes;
     max_dyn[dev].store(md, std::memory_order_release);
   }
-  const size_t smem = probe_smem(D, L, C, VE);
+  const size_t smem = probe_smem(D, L, VE);
   if (smem > (size_t)md) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, B, 1);
+  cfg.gridDim = dim3(kCluster, B, 1);
   cfg.blockDim = dim3(kProbeThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (C > 8 && c16_ok[dev].load(std::memory_order_acquire) == 0) {
-    int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-    if (e != cudaSuccess) return e;
-    if (n < 1) return cudaErrorInvalidConfiguration;
-    c16_ok[dev].store(1, std::memory_order_release);
-  }
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
                          static_cast<const float*>(centers),
                          static_cast<float*>(sep), static_cast<int*>(best),
@@ -379,38 +368,37 @@ cudaError_t launch_probe(const void* x, const void* centers, void* sep,
 template <typename T>
 cudaError_t launch_probe_t(const void* x, const void* centers, void* sep,
                            void* best, void* sims, int B, int S, int D, int L,
-                           int C, cudaStream_t st) {
+                           cudaStream_t st) {
   // 16-byte loads of x and of the centers need D % kVec == 0 and aligned
   // pointers; single elements otherwise (odd widths, unaligned rows)
   if (D % Elem<T>::kVec == 0 && aligned(x, 16) && aligned(centers, 16))
     return launch_probe<T, Elem<T>::kVec>(x, centers, sep, best, sims, B, S,
-                                          D, L, C, st);
-  return launch_probe<T, 1>(x, centers, sep, best, sims, B, S, D, L, C, st);
+                                          D, L, st);
+  return launch_probe<T, 1>(x, centers, sep, best, sims, B, S, D, L, st);
 }
 
 }  // namespace
 
 // x (B, S, D) of `dtype` (enum DType), centers (L, D) float32 -> sep (B,),
-// best (B,) int32, sims (B, L), in one launch of B clusters of `cluster`
-// CTAs (8 or 16) on `stream`.
+// best (B,) int32, sims (B, L), in one launch of B clusters of kCluster
+// CTAs on `stream`.
 extern "C" int coach_semantic_probe(const void* x, const void* centers,
                                     void* sep, void* best, void* sims, int B,
-                                    int S, int D, int L, int cluster,
-                                    int dtype, void* stream) {
+                                    int S, int D, int L, int dtype,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || D <= 0 || L <= 0 || B > 65535 ||
-      (cluster != 8 && cluster != kMaxCluster))
+  if (B <= 0 || S <= 0 || D <= 0 || L <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
       return (int)launch_probe_t<float>(x, centers, sep, best, sims, B, S, D,
-                                        L, cluster, st);
+                                        L, st);
     case kBF16:
       return (int)launch_probe_t<__nv_bfloat16>(x, centers, sep, best, sims, B,
-                                                S, D, L, cluster, st);
+                                                S, D, L, st);
     case kF16:
       return (int)launch_probe_t<__half>(x, centers, sep, best, sims, B, S, D,
-                                         L, cluster, st);
+                                         L, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

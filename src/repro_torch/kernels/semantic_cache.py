@@ -3,10 +3,10 @@ label centers -> top-2 -> separability, Eq. 8-10): wrapper of the Hopper
 kernel that replaces the Pallas ``semantic_probe``
 (``repro/kernels/semantic_cache.py``).
 
-One launch of a thread-block cluster a batch row: each CTA sums a column
-slice of the rows and dots it with its slice of the centers, and the
-first CTA of the cluster adds the partial sums in a fixed order and runs
-the top-2 (``csrc/semantic_probe.cu``).  On a CUDA tensor the wrapper
+One launch of a thread-block cluster of 8 CTAs a batch row: each CTA
+sums a column slice of the rows and dots it with its slice of the
+centers, and the first CTA of the cluster adds the partial sums in a
+fixed order and runs the top-2 (``csrc/semantic_probe.cu``).  On a CUDA tensor the wrapper
 launches the kernel or raises; on a CPU tensor it runs
 ``ref.semantic_probe_ref``.
 """
@@ -33,8 +33,7 @@ def semantic_probe(x: torch.Tensor, centers: torch.Tensor):
         err = KB.lib().coach_semantic_probe(
             x.data_ptr(), centers.data_ptr(), sep.data_ptr(),
             best.data_ptr(), sims.data_ptr(), B, S, D, L,
-            KB.probe_cluster(B, S, D), KB.DTYPE_CODES[x.dtype],
-            KB.stream_of(x))
+            KB.DTYPE_CODES[x.dtype], KB.stream_of(x))
     KB.check(err, "semantic_probe")
     KB.LAUNCHES["semantic_probe"] += 1
     return sep, best, sims

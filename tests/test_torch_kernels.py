@@ -35,6 +35,8 @@ from repro_torch.kernels.uaq import uaq_dequantize, uaq_quantize  # noqa: E402
 
 PROBE_TOL = dict(atol=1e-5, rtol=1e-4)
 SHAPES = [(2, 64, 32, 5), (3, 100, 33, 4), (1, 1, 16, 2)]
+# the probe also at many rows, and at more centers than the width
+PROBE_SHAPES = SHAPES + [(13, 700, 64, 7), (2, 5, 16, 40)]
 HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
         "float16": (torch.float16, jnp.float16)}
 
@@ -96,7 +98,7 @@ def test_uaq_plain_matches_pallas_and_jitted_ref(B, S, D, L, bits):
         a, b, e, bits, n=D))(p, s, z))
 
 
-@pytest.mark.parametrize("B,S,D,L", SHAPES + [(13, 700, 64, 7)])
+@pytest.mark.parametrize("B,S,D,L", PROBE_SHAPES)
 def test_semantic_probe_plain_matches_pallas_and_jitted_ref(B, S, D, L):
     x, c = _inputs(B, S, D, L, seed=2)
     sep, best, sims = ref.semantic_probe_ref(torch.from_numpy(x),
@@ -185,7 +187,7 @@ def test_uaq_16_bit_matches_pallas(B, S, D, L, bits, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(HALF))
-@pytest.mark.parametrize("B,S,D,L", SHAPES + [(13, 700, 64, 7)])
+@pytest.mark.parametrize("B,S,D,L", PROBE_SHAPES)
 def test_semantic_probe_16_bit_matches_pallas(B, S, D, L, dtype):
     x, c = _inputs(B, S, D, L, seed=2)
     xt, xj = _half(x, dtype)
@@ -344,28 +346,11 @@ def test_quantize_warps_depend_on_the_shape_only():
             assert warps == need or 16 * warps * KB.LANE_FEW < N
 
 
-def test_probe_cluster_depends_on_the_shape_only():
-    """K4's cluster size: 8 CTAs a batch row at serve's shapes and for
-    more than C16_ROWS batch rows, 16 where a few batch rows hold many
-    tokens; a function of (B, S, D) only, for every config's d_model."""
-    assert KB.probe_cluster(1, 8, 2304) == 8  # serve
-    assert KB.probe_cluster(1, 4096, 2304) == 16  # a batch row of many rows
-    assert KB.probe_cluster(4, 4096, 2304) == 16
-    assert KB.probe_cluster(8, 4096, 2304) == 8  # 8 clusters of 16: 2 waves
-    assert KB.probe_cluster(300, 8, 2304) == 8
-    for D in _widths():
-        for B, S in ((1, 1), (1, 8), (8, 128), (8, 4096), (64, 4096)):
-            C = KB.probe_cluster(B, S, D)
-            assert C in (8, 16) and C == KB.probe_cluster(B, S, D)
-            big = S * D >= KB.PROBE_BIG and B <= KB.C16_ROWS
-            assert (C == 16) == big
-
-
 def test_probe_and_quantize_take_no_counters_or_workspace():
     """K4 is one cluster launch a batch row: its wrapper asks for no
     arrival counters (the fused boundary's wrapper still does) and its C
-    entry point takes no workspace, counters or row-pass shape; K3's
-    takes its own launch shape."""
+    entry point takes no workspace, counters or launch shape (its cluster
+    size is fixed); K3's takes its own launch shape."""
     import inspect
 
     from repro_torch.kernels import boundary, semantic_cache, uaq
@@ -378,13 +363,13 @@ def test_probe_and_quantize_take_no_counters_or_workspace():
                                  src):
         names[name] = [a.split()[-1].lstrip("*") for a in args.split(",")]
     assert names["coach_semantic_probe"] == [
-        "x", "centers", "sep", "best", "sims", "B", "S", "D", "L",
-        "cluster", "dtype", "stream"]
+        "x", "centers", "sep", "best", "sims", "B", "S", "D", "L", "dtype",
+        "stream"]
     assert names["coach_uaq_quantize"] == [
         "x", "payload", "scale", "zp", "M", "N", "bits", "warps", "dtype",
         "stream"]
     for name in ("coach_semantic_probe", "coach_uaq_quantize"):
-        assert not {"ws", "counters", "rows_per_cta", "wpr"} & set(
+        assert not {"ws", "counters", "rows_per_cta", "wpr", "cluster"} & set(
             names[name])
 
 

@@ -9,13 +9,11 @@ turns (old, new, new, old).  Times K1-K4 and their plain versions with
 ``chip_smoke.py``'s method (CUDA graphs of back-to-back calls between
 CUDA events, median) at serve's shape (1, 8, D, 16) for D = 2304, 768
 and 4096 and at the large shape (8, 4096, 2304, 16), at 8 and 4 bits,
-beside the bytes bound.  With ``--sweep`` (a tree whose quantize and
-probe entry points take their launch shape): K3 at 1-8 warps a row, for
-8 to 32768 rows of 2304, serve's rows and rows of 8192, and
-K4 with clusters of 8 and of 16 at serve's shapes, at 1-8 batch rows of
-4096 tokens and at serve's with one center or one row or a tiny width,
-each checked against the wrapper's output first.  Prints one JSON object a
-line, and the card's name and power limit.  Needs a CUDA device.
+beside the bytes bound.  With ``--sweep`` (a tree whose quantize entry
+point takes its launch shape): K3 at 1-8 warps a row, for 8 to 32768
+rows of 2304, serve's rows and rows of 8192, each checked against the
+wrapper's output first.  Prints one JSON object a line, and the card's
+name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -68,11 +66,11 @@ def main() -> int:
             for name, r in t.items():
                 emit(kernel=name, shape=list(shape), bits=bits, **r)
     if args.sweep:
-        sweep(torch, CS, KB, uaq, semantic_cache, emit)
+        sweep(torch, CS, KB, uaq, emit)
     return 0
 
 
-def sweep(torch, CS, KB, uaq, semantic_cache, emit):
+def sweep(torch, CS, KB, uaq, emit):
     gen = torch.Generator(device="cuda").manual_seed(11)
     lib = KB.lib()
     for (M, N) in ((8, 768), (8, 2304), (8, 4096), (256, 2304),
@@ -102,36 +100,6 @@ def sweep(torch, CS, KB, uaq, semantic_cache, emit):
                 emit(kernel="uaq_quantize", sweep=True, shape=[M, N],
                      bits=bits, warps=w, chosen=w == KB.quantize_warps(M, N),
                      ms=ms, bound_ms=nbytes / CS.HBM_BYTES_PER_S * 1e3)
-    # serve's shapes, the large one, one batch row of many tokens, and
-    # serve's with one center, one row, or both at a tiny width (what the
-    # launch, the GAP and the centers each add)
-    for (B, S, D, L) in ((1, 8, 2304, 16), (1, 8, 768, 16), (1, 8, 4096, 16),
-                         LARGE, (1, 4096, 2304, 16), (4, 4096, 2304, 16),
-                         (7, 4096, 2304, 16), (1, 8, 2304, 1),
-                         (1, 1, 2304, 16), (1, 1, 32, 1), (1, 8, 32, 16)):
-        x = torch.randn((B, S, D), generator=gen, device="cuda")
-        cen = torch.randn((L, D), generator=gen, device="cuda")
-        want = semantic_cache.semantic_probe(x, cen)
-        sep = torch.empty((B,), device="cuda")
-        best = torch.empty((B,), dtype=torch.int32, device="cuda")
-        sims = torch.empty((B, L), device="cuda")
-        nbytes, ops = CS.work("semantic_probe", B, S, D, L, 8)
-        for C in (8, 16):
-            def call(C=C):
-                KB.check(lib.coach_semantic_probe(
-                    x.data_ptr(), cen.data_ptr(), sep.data_ptr(),
-                    best.data_ptr(), sims.data_ptr(), B, S, D, L, C, 0,
-                    KB.stream_of(x)), "sweep")
-            call()
-            torch.cuda.synchronize()
-            assert CS.close(sims, want[2], **CS.TOL), ("K4 sweep", C)
-            big = B * S * D > 1 << 22
-            ms = CS.device_ms(torch, call, 3 if big else 200,
-                              10 if big else 20)
-            emit(kernel="semantic_probe", sweep=True, shape=[B, S, D, L],
-                 cluster=C, ms=ms,
-                 bound_ms=max(nbytes / CS.HBM_BYTES_PER_S,
-                              ops / CS.FP32_OPS_PER_S) * 1e3)
 
 
 if __name__ == "__main__":
