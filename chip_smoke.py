@@ -11,9 +11,12 @@ Phases (any failure exits non-zero before the last line):
      a large shape, with float32, bfloat16 and float16 activations (and
      dequantized values of the same type): wire fields (payload, scale,
      zp, dequantized values) bit-equal, probe fields (feat, sims, sep)
-     within TOL, ``best`` equal except at near-ties; the quantize on rows
-     holding -0.0 / +0.0 and NaN against its plain version; the fused
-     boundary, quantize and probe kernels' outputs bit-equal across two
+     within TOL, ``best`` equal except at near-ties; the quantize and the
+     fused boundary on rows holding -0.0 / +0.0 and NaN, and the fused
+     boundary and the probe with a NaN center or a NaN token, against
+     their plain versions (NaN where they have NaN, ``best`` as
+     torch.argmax takes it); the fused boundary, quantize and probe
+     kernels' outputs bit-equal across two
      calls, after 50 replays of a captured call (the fused kernel's
      arrival counters go back to 0), and when two graphs captured on one
      stream are replayed out of order and at once;
@@ -50,9 +53,22 @@ Phases (any failure exits non-zero before the last line):
      0.05 of the monolithic forward, and one steady request timed and
      profiled; then the engines on full-width gemma2-2b at its 6-bit plan
      (no kernel there: 6-bit hops run the plain versions);
+  10. the two-pod pipeline (``make_collab_pipeline_step``, 8 bits) on
+     full-width qwen3-14b in bf16, the pods on two CUDA streams, at the
+     reference test's (2, 4, 32) tokens and at (8, 4, 256): the quantize
+     and dequantize kernels once a microbatch, the output bit-equal to the
+     pods serialized on one stream and to the plain versions' run, each
+     microbatch within 0.05 of the monolithic forward, one step timed
+     with the overlap and serialized;
+  11. training: one step's loss and gradients on the card against the CPU
+     (gemma2-2b at full width cut to 4 layers, full-width mamba2-130m), a
+     checkpoint round trip of the stepped params and AdamW state on the
+     card, and ``launch.train.train`` on full-width gemma2-2b (fp32, 5
+     steps of 8 x 256 tokens): ms per step, tokens per second, peak
+     memory and the fp32 bound;
   then print each phase's numbers, the card's name and power limit, the
-  kernels' JSON line (launches summed over phases 4-7's and 9's main-path
-  runs), and the contract line.
+  kernels' JSON line (launches summed over phases 4-7's, 9's and 10's
+  main-path runs), and the contract line.
 
 Exits with code 2 and prints no result when CUDA is not available or
 ``src/repro_torch`` is not beside this script.
@@ -214,6 +230,7 @@ def check_kernels(torch, K):
                     f"uaq_dequantize differs at {(M, N)} {dt}"
         log(f"  ok ragged M {(M, N)} in {', '.join(DTYPES)}")
     check_signed_zero_and_nan(torch, K)
+    check_nan_probe(torch, K)
     for shape in (SERVE_SHAPE, LARGE_SHAPE):
         for name in ("fused_boundary", "uaq_quantize", "semantic_probe"):
             check_repeatable(torch, K, shape, name)
@@ -221,42 +238,117 @@ def check_kernels(torch, K):
     return errs
 
 
+def signed_zero_and_nan_rows(torch, gen, M, N):
+    """(M, N) rows whose min or max is -0.0 or +0.0 (both signs in one
+    row, and either alone) and rows holding a NaN (rows 3 and 5), beside
+    plain rows; with fewer than 6 rows, one NaN in row 0."""
+    x = torch.rand((M, N), generator=gen, device="cuda") * 3.0
+    if M < 6:
+        x[0, 0] = float("nan")
+        return x
+    x[0, :: 7] = 0.0
+    x[0, 3:: 11] = -0.0
+    x[1, :] = x[1].abs()
+    x[1, N // 2] = -0.0
+    x[2, :] = -x[2].abs()
+    x[2, N - 1] = 0.0
+    x[3, N // 3] = float("nan")
+    x[4, :] = -0.0
+    x[5, 0] = float("nan")
+    x[5, 1] = 0.0
+    return x
+
+
+def same_with_nan(torch, g, w, exact=True):
+    """NaN at the same places, and the rest bit-equal (values for zp:
+    -0.0 == +0.0) or, with ``exact=False``, within TOL."""
+    if g.dtype != w.dtype or g.shape != w.shape or \
+            not torch.equal(torch.isnan(g), torch.isnan(w)):
+        return False
+    g, w = torch.nan_to_num(g), torch.nan_to_num(w)
+    return torch.equal(g, w) if exact else close(g, w, **TOL)
+
+
 def check_signed_zero_and_nan(torch, K):
-    """The quantize on rows whose min or max is -0.0 or +0.0 (both signs in
-    one row, and either alone), and on rows holding a NaN, against the
-    plain version in every activation dtype, at rows of several warps (8
-    rows), of one warp (2048 rows) and of the scalar path (an odd width),
-    at both bit widths: codes and scale bit-equal, zp equal as values
-    (-0.0 == +0.0: the kernel's min orders -0.0 first, torch's may return
-    either), NaN where the plain version has NaN."""
-    ref, U = K["ref"], K["uaq"]
+    """The quantize (K3) and the fused boundary (K1) on rows whose min or
+    max is -0.0 or +0.0 (both signs in one row, and either alone), and on
+    rows holding a NaN, against the plain version in every activation
+    dtype at both bit widths: codes and scale bit-equal, zp equal as
+    values (-0.0 == +0.0: the kernels' min orders -0.0 first, torch's may
+    return either), NaN where the plain version has NaN; K1's probe
+    fields NaN where the plain version's are (a batch row holding a NaN)
+    and within TOL elsewhere, ``best`` equal.  K3 at rows of several
+    warps (8 rows), of one warp (2048 rows) and of the scalar path (an
+    odd width); K1 at (1, 1, 16), serve's shape and an odd width."""
+    ref, U, B_ = K["ref"], K["uaq"], K["boundary"]
     gen = torch.Generator(device="cuda").manual_seed(5)
     for M, N in ((8, 768), (8, 2304), (2048, 2304), (7, 33)):
-        x = torch.rand((M, N), generator=gen, device="cuda") * 3.0
-        x[0, :: 7] = 0.0
-        x[0, 3:: 11] = -0.0
-        x[1, :] = x[1].abs()
-        x[1, N // 2] = -0.0
-        x[2, :] = -x[2].abs()
-        x[2, N - 1] = 0.0
-        x[3, N // 3] = float("nan")
-        x[4, :] = -0.0
-        x[5, 0] = float("nan")
-        x[5, 1] = 0.0
+        x = signed_zero_and_nan_rows(torch, gen, M, N)
         for dt in DTYPES:
             xd = x.to(getattr(torch, dt))
             for bits in (4, 8):
                 got = U.uaq_quantize(xd, bits)
                 want = ref.uaq_quantize_ref(xd, bits)
                 for name, g, w in zip(("payload", "scale", "zp"), got, want):
-                    assert g.dtype == w.dtype and g.shape == w.shape and \
-                        torch.equal(torch.isnan(g), torch.isnan(w)) and \
-                        torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)), \
+                    assert same_with_nan(torch, g, w), \
                         f"uaq_quantize {name} differs on rows with -0.0 / " \
                         f"NaN at {(M, N)} {dt} {bits}b"
                 assert bool(torch.isnan(got[1][3]).all()), \
                     "a NaN row's scale is not NaN"
     log("  ok uaq_quantize on rows with -0.0 / +0.0 and NaN")
+    for B, S, D in ((1, 1, 16), SERVE_SHAPE[:3], (1, 8, 33)):
+        x = signed_zero_and_nan_rows(torch, gen, B * S, D).reshape(B, S, D)
+        c = torch.randn((5, D), generator=gen, device="cuda")
+        for dt in DTYPES:
+            xd = x.to(getattr(torch, dt))
+            for bits in (4, 8):
+                got = B_.fused_boundary(xd, c, bits)
+                want = ref.fused_boundary_ref(xd, c, bits)
+                for i, name in enumerate(("payload", "scale", "zp", "feat",
+                                          "sep", "best", "sims")):
+                    assert same_with_nan(torch, got[i], want[i],
+                                         exact=i not in (3, 4, 6)), \
+                        f"fused_boundary {name} differs on rows with -0.0 " \
+                        f"/ NaN at {(B, S, D)} {dt} {bits}b"
+                assert bool(torch.isnan(got[1].reshape(-1)[
+                    3 if B * S >= 6 else 0])), "a NaN row's scale is not NaN"
+    log("  ok fused_boundary on rows with -0.0 / +0.0 and NaN")
+
+
+def check_nan_probe(torch, K):
+    """K1's and K4's top-1 as torch.argmax takes it: a center holding a
+    NaN (its sim is NaN and the first NaN is the max), two of them, one
+    past the first 32, and a token holding a NaN (every sim of its batch
+    row NaN): ``best`` equal to the plain version's, sep and sims NaN
+    where the plain version's are and within TOL elsewhere."""
+    ref, B_, S_ = K["ref"], K["boundary"], K["semantic_cache"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for B, S, D, L in (SERVE_SHAPE, (3, 8, 2304, 40), (3, 8, 33, 37)):
+        x = torch.randn((B, S, D), generator=gen, device="cuda")
+        c = torch.randn((L, D), generator=gen, device="cuda")
+        cases = []
+        for rows in ((2,), (4, 1), (L - 1,)):
+            cc = c.clone()
+            for r in rows:
+                cc[r, r % D] = float("nan")
+            cases.append((x, cc))
+        xx = x.clone()
+        xx[B - 1, S // 2, D // 2] = float("nan")
+        cases.append((xx, c))
+        for xi, ci in cases:
+            for name, got, want in (
+                    ("fused_boundary", B_.fused_boundary(xi, ci, 8)[4:],
+                     ref.fused_boundary_ref(xi, ci, 8)[4:]),
+                    ("semantic_probe", S_.semantic_probe(xi, ci),
+                     ref.semantic_probe_ref(xi, ci))):
+                assert torch.equal(got[1], want[1]), \
+                    f"{name} best {got[1].tolist()} != {want[1].tolist()} " \
+                    f"with a NaN at {(B, S, D, L)}"
+                for i in (0, 2):
+                    assert same_with_nan(torch, got[i], want[i], False), \
+                        f"{name} output {i} with a NaN at {(B, S, D, L)}"
+        assert bool(torch.isnan(want[0][B - 1])), "a NaN token's sep"
+    log("  ok fused_boundary and semantic_probe on NaN centers and features")
 
 
 def check_repeatable(torch, K, shape, name):
@@ -503,10 +595,11 @@ def rel_err(torch, a, b):
                  / torch.linalg.vector_norm(b))
 
 
-def init_params(torch, M, cfg):
-    """Random fp32 weights from seed 0 on the card."""
+def init_params(torch, M, cfg, dtype=None):
+    """Random weights (fp32 unless ``dtype``) from seed 0 on the card."""
     t0 = time.time()
-    params = M.init_params(cfg, seed=0, device="cuda")
+    params = M.init_params(cfg, seed=0, device="cuda",
+                           dtype=dtype or torch.float32)
     torch.cuda.synchronize()
     log(f"params: {M.param_count(params) / 1e9:.3f} B in "
         f"{time.time() - t0:.1f}s")
@@ -968,6 +1061,226 @@ def time_request(torch, request):
             "idle_share": idle, "launches_per_request": n}
 
 
+# ------------------------------------------------------------ phase 10
+# (n_micro, B_mb, S): the reference test's tokens, and enough rows (1024 a
+# microbatch) for the two pods to have compute to overlap
+PIPE_SHAPES = ((2, 4, 32), (8, 4, 256))
+# each microbatch's max|d| / max|ref| against the monolithic forward, the
+# reference test's bound (tests/test_collab.py:94-101)
+PIPE_BOUND = 0.05
+
+
+def time_steps(torch, fns, rounds=6):
+    """Median wall ms (host clock to a synchronize) and ms between two
+    CUDA events on the current stream (which the two-stream step joins at
+    its start and end) of each of ``fns`` (name -> call), after a warm-up
+    call of each: ``rounds`` rounds, the calls in turns, the order
+    reversed every other round, so that a host whose speed drifts during
+    the phase weighs on every call alike."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    walls = {k: [] for k in fns}
+    evs = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            fns[name]()
+            b.record()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            evs[name].append(a.elapsed_time(b))
+    return {k: (statistics.median(walls[k]), statistics.median(evs[k]))
+            for k in fns}
+
+
+def pipeline_check(torch, M, cfg, params, shape):
+    """The two-pod pipeline (``make_collab_pipeline_step``, 8 bits) on
+    ``params`` over tokens of ``shape``: the two-stream step with the
+    launch counts set to 0 just before and read just after; then its
+    output against the pods serialized on one stream and against the run
+    with the plain quantize and dequantize (bit-equal), each microbatch
+    against the monolithic forward (PIPE_BOUND), the boundary's and the
+    logits' relative L2 error for microbatch 0 (the model's
+    amplification), and one step timed with the overlap and serialized,
+    in turns; one serialized step profiled (kernel time and launches a
+    step: the same kernels run in both modes).  Returns (launches,
+    numbers)."""
+    from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+    from repro_torch.kernels import _build as KB
+    from repro_torch.kernels import ops as KOPS
+    n_micro, B, S = shape
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+    steps = {name: make_collab_pipeline_step(cfg, mesh, bits=8,
+                                             n_micro=n_micro, use_kernel=k)
+             for name, mesh, k in (
+                 ("overlap", PodMesh.on_card("cuda"), True),
+                 ("serial", PodMesh.on_card("cuda", overlap=False), True),
+                 ("plain", PodMesh.on_card("cuda"), False))}
+    with torch.no_grad():
+        KB.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        out = steps["overlap"](params, toks)
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        assert out.shape == (n_micro, B, cfg.vocab_size), out.shape
+        assert bool(torch.isfinite(out).all()), "non-finite logits"
+        assert torch.equal(out, steps["serial"](params, toks)), \
+            f"two streams differ from one at {shape}"
+        assert torch.equal(out, steps["plain"](params, toks)), \
+            f"the kernels' pipeline differs from the plain versions' at " \
+            f"{shape}"
+        rels = []
+        for i in range(n_micro):
+            h, _, _ = M.forward(params, cfg, toks[i])
+            want = M._lm_head(params, cfg, h[:, -1]).float()
+            rels.append(float((out[i].float() - want).abs().max()
+                              / want.abs().max()))
+            if i == 0:
+                half = cfg.num_groups // 2
+                hb = M.run_groups(M.group_slice(params["groups"],
+                                                slice(0, half)),
+                                  M._embed(params, cfg, toks[0]), cfg,
+                                  M.positions_for(B, S, "cuda"))
+                deq = KOPS.wire_dequantize(
+                    *KOPS.wire_quantize(hb.reshape(-1, cfg.d_model), 8),
+                    8, out_dtype=hb.dtype).reshape(hb.shape)
+                bnd = rel_err(torch, deq.float(), hb.float())
+                lg = rel_err(torch, out[0].float(), want)
+        times = time_steps(torch, {
+            name: lambda s=steps[name]: s(params, toks)
+            for name in ("overlap", "serial")})
+        # the same kernels run in both modes: one serialized step profiled
+        log(f"  {shape} serialized, under the profiler:")
+        busy, _, per_step = profile_requests(
+            torch, lambda: steps["serial"](params, toks), 1)
+    log(f"  {shape}: launches {launches}; two streams == one stream == "
+        f"plain K3/K2; max|d|/max|ref| per microbatch "
+        f"{', '.join(f'{r:.4g}' for r in rels)} (< {PIPE_BOUND}); "
+        f"microbatch 0 rel L2: boundary {bnd:.4g}, logits {lg:.4g} "
+        f"(amplification {lg / bnd:.3g})")
+    for name, (wall, dev) in times.items():
+        log(f"  {shape} {name:7s}: {wall:.2f} ms wall, {dev:.2f} ms between "
+            f"device events (median of 6, in turns)")
+    assert max(rels) < PIPE_BOUND, rels
+    for name in ("uaq_quantize", "uaq_dequantize"):
+        assert launches.get(name, 0) == n_micro, \
+            f"the pipeline launched {name} {launches.get(name, 0)} times"
+    return launches, {
+        "max_ratio": rels, "boundary_rel_l2": bnd, "logits_rel_l2": lg,
+        "overlap_ms": times["overlap"][0],
+        "overlap_event_ms": times["overlap"][1],
+        "serial_ms": times["serial"][0],
+        "serial_event_ms": times["serial"][1],
+        "kernel_ms": busy, "launches_per_step": per_step}
+
+
+# ------------------------------------------------------------ phase 11
+def tree_to(torch, tree, device):
+    from repro_torch.training.optim import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def train_card_vs_cpu(torch, M, cfg):
+    """One train step's loss and gradients on the card against the CPU,
+    on the same CPU-drawn weights and batch (B = 2, S = 64): loss within
+    1e-5 relative, every gradient leaf within 1e-3 relative L2.  Returns
+    (card params, loss rel err, worst leaf rel L2)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import tree_leaves
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = tree_to(torch, params, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(12))
+    b = {"tokens": toks, "labels": toks}
+    loss, _, grads = ST.loss_and_grads(params, cfg, b)
+    gloss, _, ggrads = ST.loss_and_grads(gparams, cfg,
+                                         tree_to(torch, b, "cuda"))
+    lrel = abs(float(gloss) - float(loss)) / abs(float(loss))
+    worst = max(float(torch.linalg.vector_norm(g.cpu() - w)
+                      / torch.linalg.vector_norm(w))
+                for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)))
+    log(f"  {cfg.name} ({cfg.num_layers} layers, "
+        f"{M.param_count(params) / 1e9:.3f} B): loss {float(gloss):.6f} "
+        f"card vs {float(loss):.6f} CPU (rel {lrel:.3g} < 1e-5); worst "
+        f"gradient leaf rel L2 {worst:.3g} (< 1e-3)")
+    assert lrel < 1e-5 and worst < 1e-3, (lrel, worst)
+    return gparams, lrel, worst
+
+
+def checkpoint_round_trip(torch, cfg, params):
+    """A donated train step on the card, then its params and AdamW state
+    saved (``repro_torch.checkpoint``, the JAX package's format) and
+    loaded back onto the card: every leaf bit-equal.  Returns (GB
+    written, save s, load s)."""
+    import tempfile
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves, tree_map)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                         device="cuda")
+    p2, o2, _, _ = ST.make_train_step(cfg, opt_cfg, donate=True)(
+        params, adamw_init(params, opt_cfg),
+        {"tokens": toks, "labels": toks})
+    tree = {"params": p2, "opt": o2}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        path = save_checkpoint(d, 1, tree)
+        t_save = time.time() - t0
+        gb = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path)) / 1e9
+        t0 = time.time()
+        back = load_checkpoint(d, 1, tree_map(torch.empty_like, tree))
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+    for a, w in zip(tree_leaves(back), tree_leaves(tree)):
+        assert a.device == w.device and a.dtype == w.dtype and \
+            torch.equal(a, w), "a checkpoint leaf differs after the round trip"
+    log(f"  checkpoint of {cfg.name} params + AdamW state: {gb:.2f} GB, "
+        f"saved in {t_save:.1f}s, loaded in {t_load:.1f}s, bit-equal")
+    return gb, t_save, t_load
+
+
+def train_full_width(torch, M):
+    """``train("gemma2-2b", smoke=False, steps=5, batch=8, seq=256)`` on
+    the card: fp32 params and AdamW state, remat.  Every loss finite;
+    ms per step (median of steps 2-5), tokens per second, peak memory,
+    and the fp32 bound: 8 N flops a token (forward, its recompute, and a
+    backward of twice the forward) at the card's fp32 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    batch, seq = 8, 256
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    params, losses = train("gemma2-2b", smoke=False, steps=5, batch=batch,
+                           seq=seq, device="cuda", log_every=1,
+                           step_seconds=secs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = M.param_count(params)
+    assert len(losses) == 5 and all(math.isfinite(x) for x in losses), \
+        losses
+    ms = statistics.median(secs[1:]) * 1e3
+    bound = 8 * n * batch * seq / FP32_OPS_PER_S * 1e3
+    log(f"  gemma2-2b full width ({get_config('gemma2-2b').num_layers} "
+        f"layers, {n / 1e9:.3f} B, fp32): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in secs)} (median of 2-5: "
+        f"{ms:.1f}); {batch * seq / ms * 1e3:.0f} tokens/s; peak "
+        f"{peak:.2f} GB; fp32 bound {bound:.1f} ms ({100 * bound / ms:.1f}%)")
+    return {"losses": losses, "step_s": secs, "ms_per_step": ms,
+            "tokens_per_s": batch * seq / ms * 1e3, "peak_gb": peak,
+            "fp32_bound_ms": bound, "params": n}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1115,6 +1428,42 @@ def main() -> int:
     params = None
     torch.cuda.empty_cache()
     log(f"phase 9 in {time.time() - t9:.1f}s")
+
+    log("== phase 10: the two-pod pipeline on full-width qwen3-14b (bf16, "
+        "8 bits): pods on two CUDA streams")
+    t10 = time.time()
+    cfg = get_config("qwen3-14b")
+    params = init_params(torch, M, cfg, torch.bfloat16)
+    results["pipeline qwen3-14b"] = {}
+    for shape in PIPE_SHAPES:
+        lp, res = pipeline_check(torch, M, cfg, params, shape)
+        add_launches(lp)
+        results["pipeline qwen3-14b"][str(shape)] = res
+    params = None
+    torch.cuda.empty_cache()
+    log(f"phase 10 in {time.time() - t10:.1f}s (budget 120 s)")
+
+    log("== phase 11: training on the card")
+    t11 = time.time()
+    log(" (a) one train step, card against CPU")
+    res = {}
+    for cfg in (dataclasses.replace(get_config("gemma2-2b"), num_layers=4),
+                get_config("mamba2-130m")):
+        gparams, lrel, worst = train_card_vs_cpu(torch, M, cfg)
+        res[f"{cfg.name} {cfg.num_layers} layers"] = {
+            "loss_rel": lrel, "worst_grad_rel_l2": worst}
+        if cfg.name.startswith("gemma2"):
+            log(" (c) checkpoint round trip on the card")
+            gb, t_save, t_load = checkpoint_round_trip(torch, cfg, gparams)
+            res["checkpoint"] = {"gb": gb, "save_s": t_save,
+                                 "load_s": t_load}
+        gparams = None
+        torch.cuda.empty_cache()
+    log(" (b) full-width gemma2-2b, 5 steps")
+    res["full gemma2-2b"] = train_full_width(torch, M)
+    results["training"] = res
+    torch.cuda.empty_cache()
+    log(f"phase 11 in {time.time() - t11:.1f}s (budget 180 s)")
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \
         "the port imported JAX or the JAX package"

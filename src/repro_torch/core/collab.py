@@ -6,18 +6,26 @@ activation is UAQ-quantized (Hopper kernel), transferred over its hop as a
 segment (the "cloud") finishes with norm + head.  The classic end->cloud
 deployment is the single-cut case of the same machinery.
 
-``CollabRuntime`` runs ``n_hops + 1`` stage functions with an explicit
-wire format between them (one ``WirePacket`` per hop).  The multi-pod
-pipeline (``make_collab_pipeline_step``) is not ported yet (ROADMAP queue
-1 item 12).
+Two realizations:
+
+  1. ``CollabRuntime`` runs ``n_hops + 1`` stage functions with an
+     explicit wire format between them (one ``WirePacket`` per hop).
+  2. ``make_collab_pipeline_step`` is the two-pod form: the layer groups
+     split in half between two pods, a microbatched software pipeline in
+     which pod 1 completes microbatch i while pod 0 computes i+1 (Fig. 2
+     scheme 3), the boundary quantized (K3) on the way out and
+     dequantized (K2) on the way in.  The pods are two ranks of a
+     ``torch.distributed`` group, or two CUDA streams of one card
+     (``PodMesh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
@@ -277,3 +285,127 @@ class CollabRuntime:
     def monolithic(self, params, inputs):
         h, _, _ = M.forward(params, self.cfg, inputs)
         return M._lm_head(params, self.cfg, h[:, -1])
+
+
+# ------------------------------------------------------- two-pod pipeline
+@dataclasses.dataclass(frozen=True)
+class PodMesh:
+    """The two pods of ``make_collab_pipeline_step``: pod 0 (the end) runs
+    the first half of the layer groups, pod 1 (the cloud) the second.
+
+    * ``PodMesh(rank=r)``: this process is pod ``r`` (rank ``r``) of a
+      ``torch.distributed`` world of 2.  Pod 0 sends each packet's
+      payload, scale and zp to pod 1, and an ``all_reduce`` (sum) stands
+      in for the reference's ``psum``; both ranks return the logits.
+    * ``PodMesh.on_card(device)``: both pods in this process, each on a
+      CUDA stream of its own; a packet goes from pod 0's stream to pod 1's
+      on an event, so pod 0's tick t+1 runs beside pod 1's tick t.
+      ``overlap=False`` puts both pods on the current stream, one after
+      the other (the same function, serialized)."""
+    rank: Optional[int] = None
+    streams: Optional[Tuple[Any, Any]] = None
+
+    @staticmethod
+    def on_card(device="cuda", overlap: bool = True) -> "PodMesh":
+        if overlap:
+            return PodMesh(streams=(torch.cuda.Stream(device),
+                                    torch.cuda.Stream(device)))
+        s = torch.cuda.current_stream(device)
+        return PodMesh(streams=(s, s))
+
+
+def make_collab_pipeline_step(cfg: ModelConfig, mesh: PodMesh, *,
+                              bits: int = 8, n_micro: int = 2,
+                              use_kernel: bool = True):
+    """Two-pod software pipeline (``repro.core.collab``'s SPMD step).
+
+    ``step(params, tokens)`` takes the whole parameter tree and tokens
+    (n_micro, B_mb, S) int32 (or embeds (..., D)) and returns the logits
+    of each microbatch's last token, (n_micro, B_mb, V).  On tick t of
+    ``n_micro + 1`` pod 0 embeds microbatch t and runs its groups, the
+    boundary is quantized (``wire_quantize``: K3 at 4 or 8 bits) and
+    handed to pod 1, which dequantizes it into the params' dtype
+    (``wire_dequantize``: K2) and runs its groups on it; at the end the
+    final norm and the head run on pod 1's outputs.  The reference also
+    runs the two ticks whose results it throws away (pod 1 on zeros at
+    tick 0, pod 0 repeating the last microbatch at tick ``n_micro``);
+    they are skipped here, and the outputs are the reference's.
+    ``use_kernel=False`` runs the plain versions of K3 and K2."""
+    if cfg.num_groups % 2:
+        raise ValueError(f"num_groups={cfg.num_groups}: the two pods each "
+                         f"take half of the groups, so it must be even")
+    half = cfg.num_groups // 2
+    D = cfg.d_model
+
+    def pod_fwd(params, pod, h):
+        groups = M.group_slice(params["groups"],
+                               slice(pod * half, (pod + 1) * half))
+        B, S = h.shape[:2]
+        return M.run_groups(groups, h, cfg, M.positions_for(B, S, h.device))
+
+    def send(params, tok, dt):
+        """Pod 0's tick: (payload, scale, zp) of the boundary."""
+        h = pod_fwd(params, 0, M._embed(params, cfg, tok).to(dt))
+        return KOPS.wire_quantize(h.reshape(-1, D), bits,
+                                  use_kernel=use_kernel)
+
+    def receive(params, packet, dt, shape):
+        """Pod 1's tick on a packet: its groups' output."""
+        h = KOPS.wire_dequantize(*packet, bits, out_dtype=dt, channels=D,
+                                 use_kernel=use_kernel).reshape(shape)
+        return pod_fwd(params, 1, h)
+
+    def head(params, outs):
+        h = L.rms_norm(outs, params["final_norm"], cfg.norm_eps)
+        return M._lm_head(params, cfg, h[:, :, -1])
+
+    def step_distributed(params, tokens):
+        dt = params["groups"][0]["norm1"]["scale"].dtype
+        B, S = tokens.shape[1], tokens.shape[2]
+        if mesh.rank == 0:
+            for t in range(n_micro):
+                for x in send(params, tokens[t], dt):
+                    dist.send(x.contiguous(), 1)
+            outs = torch.zeros((n_micro, B, S, D), dtype=dt,
+                               device=tokens.device)
+        else:
+            P = (D + 1) // 2 if bits == 4 else D
+            outs = []
+            for t in range(n_micro):
+                packet = (torch.empty((B * S, P), dtype=torch.uint8),
+                          torch.empty((B * S, 1)), torch.empty((B * S, 1)))
+                for x in packet:
+                    dist.recv(x, 0)
+                outs.append(receive(params, packet, dt, (B, S, D)))
+            outs = torch.stack(outs)
+        dist.all_reduce(outs, op=dist.ReduceOp.SUM)
+        return head(params, outs)
+
+    def step_on_card(params, tokens):
+        dt = params["groups"][0]["norm1"]["scale"].dtype
+        B, S = tokens.shape[1], tokens.shape[2]
+        main = torch.cuda.current_stream(tokens.device)
+        s0, s1 = mesh.streams
+        s0.wait_stream(main)
+        s1.wait_stream(main)
+        outs = []
+        for t in range(n_micro):
+            with torch.cuda.stream(s0):
+                packet = send(params, tokens[t], dt)
+                ready = torch.cuda.Event()
+                ready.record(s0)
+            with torch.cuda.stream(s1):
+                s1.wait_event(ready)
+                # made on pod 0's stream, read on pod 1's: the allocator
+                # must not hand their memory out again before s1 is done
+                for x in packet:
+                    x.record_stream(s1)
+                outs.append(receive(params, packet, dt, (B, S, D)))
+        with torch.cuda.stream(s1):
+            logits = head(params, torch.stack(outs))
+        main.wait_stream(s0)
+        main.wait_stream(s1)
+        logits.record_stream(main)
+        return logits
+
+    return step_on_card if mesh.streams is not None else step_distributed

@@ -26,8 +26,9 @@
 //     or 4 warps when the row is wider than 2304 elements, or when there
 //     are too few rows to fill the card).  The warp loads the whole row
 //     into registers with 16-byte loads (D % 8 == 0 and an aligned
-//     pointer; scalar loads otherwise, e.g. D = 33), takes min/max with
-//     shuffles (no block-wide barrier per row), and quantizes and packs
+//     pointer; scalar loads otherwise, e.g. D = 33), takes min/max as K3
+//     does (min.NaN / max.NaN a lane, redux.sync a warp: a NaN is carried
+//     to scale and zp; no block-wide barrier per row), and quantizes and packs
 //     from the registers, so the row is read once.  GAP adds each row into
 //     the warp's own row of shared memory, at the columns each lane owns
 //     (per-lane registers for them spilled: 255 registers with K1's row
@@ -37,7 +38,8 @@
 //     partial row to a (B, n_chunks, D) workspace and counts itself in a
 //     per-batch-row arrival counter; the CTA that arrives last sums the
 //     partials in chunk order (deterministic, no float atomics), runs the
-//     probe with the centers spread over its warps and a shuffle top-2,
+//     probe with the centers spread over its warps and a shuffle top-2
+//     (torch.argmax's order: the first NaN sim is the max),
 //     and sets the counter back to 0 for the next launch.  It is bound by
 //     L2 latency, so its loads go out in batches before any is used.
 //     Rows per CTA depend on the shape only, so the summation order is

@@ -1,6 +1,8 @@
 // Shared pieces of the boundary kernels (coach_kernels.cu, row_pass.cuh,
-// uaq_quantize.cu, semantic_probe.cu): element types, warp reductions, the
-// UAQ rounding of one value, and the fused boundary kernel's entry points.
+// uaq_quantize.cu, semantic_probe.cu): element types, warp reductions, a
+// row's NaN-carrying min / max and its UAQ parameters (K1 and K3), the
+// UAQ rounding of one value, the probe's top-2 (K1 and K4), and the fused
+// boundary kernel's entry points.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,14 +39,53 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// ------------------------------------------------ NaN-carrying min / max
+// min.NaN / max.NaN return NaN when either operand is NaN, as torch.amin /
+// torch.amax (and jnp.min / jnp.max) carry a NaN; fminf / fmaxf drop it.
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// ascending floats -> ascending unsigned keys (-0.0 below +0.0), and back
+__device__ __forceinline__ unsigned fkey(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float funkey(unsigned k) {
+  return __uint_as_float(k ^ ((int)k < 0 ? 0x80000000u : 0xffffffffu));
+}
+
+// A row's min and max as keys, and whether it holds a NaN.
+struct MinMaxKeys {
+  unsigned nan, lo, hi;
+};
+
+// From each lane's lo / hi (taken with fmin_nan / fmax_nan: NaN if the
+// lane saw one; +inf / -inf if it saw nothing), across the warp: one
+// redux.sync each, no shuffle tree.
+__device__ __forceinline__ MinMaxKeys warp_minmax(float lo, float hi) {
+  MinMaxKeys k;
+  k.nan = __reduce_or_sync(kFull, (unsigned)(lo != lo));
+  k.lo = __reduce_min_sync(kFull, fkey(lo));
+  k.hi = __reduce_max_sync(kFull, fkey(hi));
+  return k;
+}
+
+// Combine the keys of two parts of one row (exact: min / max / or).
+__device__ __forceinline__ void merge_minmax(MinMaxKeys& a,
+                                             const MinMaxKeys& b) {
+  a.nan |= b.nan;
+  a.lo = min(a.lo, b.lo);
+  a.hi = max(a.hi, b.hi);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -163,6 +204,83 @@ __device__ __forceinline__ uint32_t quant1(float v, float sc, float r,
     t = __fdiv_rn(v, sc);
   }
   return min(__float2uint_rn(__fadd_rn(t, z)), (1u << BITS) - 1u);
+}
+
+// A row's quantization parameters from its min / max keys: a row that
+// holds a NaN gets NaN scale and zp (so every code 0), as the plain
+// version does; otherwise
+//   scale = fmaxf(hi - lo, 1e-8) * (1 / qmax)   (float32 reciprocal)
+//   zp    = rint(-lo / scale)
+// and r = RN(1 / scale) for quant1, `fast` where v * r cannot overflow.
+struct RowQ {
+  float sc, z, r;
+  bool fast;
+};
+
+template <int BITS>
+__device__ __forceinline__ RowQ row_qparams(const MinMaxKeys& k) {
+  const float lo = funkey(k.lo), hi = funkey(k.hi);
+  // 1 / qmax rounded to float32 (the constant is folded in IEEE
+  // round-to-nearest, the bits of __fdiv_rn)
+  constexpr float inv_qmax = 1.0f / float((1 << BITS) - 1);
+  RowQ p;
+  p.sc = k.nan ? __int_as_float(0x7fffffff)
+               : __fmul_rn(fmaxf(__fsub_rn(hi, lo), 1e-8f), inv_qmax);
+  p.z = rintf(__fdiv_rn(-lo, p.sc));
+  p.r = __frcp_rn(p.sc);
+  p.fast = __fmul_rn(fmaxf(fabsf(lo), fabsf(hi)), p.r) < 1e30f;
+  return p;
+}
+
+// ------------------------------------------------ probe top-2
+// A sim's key in torch.argmax's order: a NaN above every number (fkey
+// orders the numbers, -0.0 below +0.0); 0 is below every key.
+__device__ __forceinline__ unsigned sim_key(float v) {
+  return v != v ? 0xffffffffu : fkey(v);
+}
+
+__device__ __forceinline__ float sim_of_key(unsigned k) {
+  return k == 0xffffffffu ? __int_as_float(0x7fffffff) : funkey(k);
+}
+
+// Run by one whole warp over the sims sl[0, L): top-1 as torch.argmax
+// picks it (the first NaN, else the first index of the largest), t_h the
+// sims' max and t_sh the max of the others, both as torch.amax takes
+// them (NaN if one is NaN; t_sh -inf when L == 1), then Eq. 9
+//   sep = |sims| (t_h - t_sh) t_h / max(t_sh, 1e-12);
+// lane 0 writes sep and best.  Each lane keeps the best and second-best
+// key of its sims; three redux.sync then give the max key, the first
+// index holding it, and t_sh (the other lanes' best, or the owner's
+// second best).
+__device__ __forceinline__ void probe_top2(const float* sl, int L,
+                                           float* sep, int* best) {
+  const int lane = threadIdx.x & 31;
+  unsigned kb = 0u, k2 = fkey(-INFINITY);
+  int bi = L;
+  float nrm = 0.f;
+  for (int l = lane; l < L; l += 32) {
+    const float v = sl[l];
+    const unsigned k = sim_key(v);
+    if (k > kb) {
+      k2 = max(k2, kb);
+      kb = k;
+      bi = l;
+    } else {
+      k2 = max(k2, k);
+    }
+    nrm = __fmaf_rn(v, v, nrm);
+  }
+  const unsigned kmax = __reduce_max_sync(kFull, kb);
+  const int b = (int)__reduce_min_sync(
+      kFull, kb == kmax ? (unsigned)bi : (unsigned)L);
+  const unsigned ksh = __reduce_max_sync(kFull, bi == b ? k2 : kb);
+  nrm = __fsqrt_rn(warp_sum(nrm));
+  if (lane == 0) {
+    const float th = sim_of_key(kmax), tsh = sim_of_key(ksh);
+    *sep = __fdiv_rn(__fmul_rn(__fmul_rn(nrm, __fsub_rn(th, tsh)), th),
+                     fmaxf(tsh, 1e-12f));
+    *best = b;
+  }
 }
 
 inline bool aligned(const void* p, uintptr_t a) {

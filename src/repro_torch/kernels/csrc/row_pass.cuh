@@ -20,7 +20,8 @@ constexpr int kTileL = 4;       // centers a warp takes at a time
 // Run by the last CTA of batch row b: sum the n_chunks partial rows in
 // order, divide by the true S, then cosine against every center (fp32 on
 // CUDA cores: L is small; f . c / (|f| |c|), so f is not rescaled), map to
-// [0, 1] (Eq. 8), then top-1 (first index on ties), top-2 and sep (Eq. 9).
+// [0, 1] (Eq. 8), then top-1, top-2 and sep (Eq. 9) as the plain version
+// takes them (probe_top2: torch.argmax's order, NaN carried).
 // `sm` holds D + L floats.
 //
 // It is a few hundred KB read from L2 by one SM, so it is bound by load
@@ -161,36 +162,7 @@ __device__ void probe_epilogue(const float* __restrict__ w, int n_chunks,
     }
   }
   __syncthreads();
-  if (warp != 0) return;
-  // top-1 by a shuffle argmax (first index on ties), then top-2 and the
-  // norm of sims
-  float th = -INFINITY;
-  int bi = L;
-  for (int l = lane; l < L; l += 32)
-    if (sl[l] > th || bi == L) {
-      th = sl[l];
-      bi = l;
-    }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, th, o);
-    const int oi = __shfl_xor_sync(kFull, bi, o);
-    if (ov > th || (ov == th && oi < bi)) {
-      th = ov;
-      bi = oi;
-    }
-  }
-  float tsh = -INFINITY, nrm = 0.f;
-  for (int l = lane; l < L; l += 32) {
-    if (l != bi) tsh = fmaxf(tsh, sl[l]);
-    nrm = __fmaf_rn(sl[l], sl[l], nrm);
-  }
-  tsh = warp_max(tsh);
-  nrm = __fsqrt_rn(warp_sum(nrm));
-  if (lane == 0) {
-    *sep = __fdiv_rn(__fmul_rn(__fmul_rn(nrm, __fsub_rn(th, tsh)), th),
-                     fmaxf(tsh, 1e-12f));
-    *best = bi;
-  }
+  if (warp == 0) probe_top2(sl, L, sep, best);
 }
 
 // ------------------------------------------------ row pass
@@ -280,7 +252,7 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
   constexpr int NV = kLaneElems / VEC;  // vector slots per lane
   // ng rows of D GAP sums, then f and sims in the epilogue
   extern __shared__ float sm[];
-  __shared__ float mm[2][kRowWarps][2];  // min/max per warp, 2 rows
+  __shared__ MinMaxKeys mm[2][kRowWarps];  // min/max per warp, 2 rows
   __shared__ int is_last;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -335,29 +307,22 @@ row_pass_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
         gap_add<VEC>(acc + vi * VEC, &v[k * VEC]);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          lo = fminf(lo, v[k * VEC + i]);
-          hi = fmaxf(hi, v[k * VEC + i]);
+          lo = fmin_nan(lo, v[k * VEC + i]);
+          hi = fmax_nan(hi, v[k * VEC + i]);
         }
       }
     }
-    lo = warp_min(lo);
-    hi = warp_max(hi);
+    // K3's min / max (NaN carried, -0.0 below +0.0) and row parameters
+    MinMaxKeys mk = warp_minmax(lo, hi);
     if (wpr > 1) {  // combine the group's warps (exact: min/max)
-      if (lane == 0) {
-        mm[parity][warp][0] = lo;
-        mm[parity][warp][1] = hi;
-      }
+      if (lane == 0) mm[parity][warp] = mk;
       group_sync(1 + grp, gstride);
-      for (int i = 0; i < wpr; ++i) {
-        lo = fminf(lo, mm[parity][grp * wpr + i][0]);
-        hi = fmaxf(hi, mm[parity][grp * wpr + i][1]);
-      }
+      for (int i = 0; i < wpr; ++i)
+        merge_minmax(mk, mm[parity][grp * wpr + i]);
     }
-    const float inv_qmax = __fdiv_rn(1.0f, float((1 << BITS) - 1));
-    const float sc = __fmul_rn(fmaxf(__fsub_rn(hi, lo), 1e-8f), inv_qmax);
-    const float z = rintf(__fdiv_rn(-lo, sc));
-    const float r = __frcp_rn(sc);
-    const bool fast = __fmul_rn(fmaxf(fabsf(lo), fabsf(hi)), r) < 1e30f;
+    const RowQ q = row_qparams<BITS>(mk);
+    const float sc = q.sc, z = q.z, r = q.r;
+    const bool fast = q.fast;
     if (g == 0) {
       scale[row] = sc;
       zp[row] = z;

@@ -27,8 +27,9 @@
 //     on that mbarrier, adds the C partial vectors in rank order and
 //     finishes as the fused boundary kernel's epilogue does (row_pass.cuh,
 //     probe_epilogue): the cosine over max(|f|, 1e-12) and
-//     max(|c|, 1e-12), Eq. 8, top-1 (first index on ties), top-2 and
-//     Eq. 9 sep.  The one cluster barrier (rank 0's mbarrier is
+//     max(|c|, 1e-12), Eq. 8, then top-1, top-2 and Eq. 9 sep as the
+//     plain version takes them (probe_top2 in common.cuh: torch.argmax's
+//     order, NaN carried).  The one cluster barrier (rank 0's mbarrier is
 //     initialised before any rank stores there) is split: arrived at
 //     first, waited on after the GAP.  Each cluster.sync() costs ~0.8 us
 //     on an H100 (PERF.md), so rank 0 does not pull the partials
@@ -270,37 +271,7 @@ semantic_probe_kernel(const T* __restrict__ x,
     sims[(size_t)b * L + l] = s;
   }
   __syncthreads();
-  if (warp == 0) {
-    // top-1 by a shuffle argmax (first index on ties), then top-2 and
-    // the norm of sims
-    float th = -INFINITY;
-    int bi = L;
-    for (int l = lane; l < L; l += 32)
-      if (sl[l] > th || bi == L) {
-        th = sl[l];
-        bi = l;
-      }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, th, o);
-      const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (ov > th || (ov == th && oi < bi)) {
-        th = ov;
-        bi = oi;
-      }
-    }
-    float tsh = -INFINITY, nrm = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      if (l != bi) tsh = fmaxf(tsh, sl[l]);
-      nrm = __fmaf_rn(sl[l], sl[l], nrm);
-    }
-    tsh = warp_max(tsh);
-    nrm = __fsqrt_rn(warp_sum(nrm));
-    if (lane == 0) {
-      sep[b] = __fdiv_rn(__fmul_rn(__fmul_rn(nrm, __fsub_rn(th, tsh)), th),
-                         fmaxf(tsh, 1e-12f));
-      best[b] = bi;
-    }
-  }
+  if (warp == 0) probe_top2(sl, L, sep + b, best + b);
 }
 
 // ------------------------------------------------ host side

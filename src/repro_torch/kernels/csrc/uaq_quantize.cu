@@ -27,13 +27,15 @@
 //
 // Numerics are those of the fused boundary kernel's row quantize (K1,
 // row_pass.cuh), so the wire fields are bit-equal to K1's and to the plain
-// version (coach_kernels.cu has the formulas; quant1 in common.cuh).  The
-// min and max are exact: per lane with min.NaN / max.NaN, across the warp
-// with redux.sync on an order-preserving unsigned key of the float.  Two
+// version (coach_kernels.cu has the formulas; quant1 and row_qparams in
+// common.cuh).  The min and max are exact, and K1's: per lane with
+// min.NaN / max.NaN, across the warp with redux.sync on an
+// order-preserving unsigned key of the float (warp_minmax).  Two
 // differences from fminf / fmaxf, both on purpose:
-//   * the key orders -0.0 below +0.0, where fminf may return either; a
-//     row whose min is a zero may get zp = -0.0 where K1 gets +0.0 (or the
-//     other way), which compare equal (torch.equal) and quantize alike;
+//   * the key orders -0.0 below +0.0, where torch.amin may return either;
+//     a row whose min is a zero may get zp = -0.0 where the plain version
+//     gets +0.0 (or the other way), which compare equal (torch.equal) and
+//     quantize alike;
 //   * a NaN anywhere in a row makes its lo, hi, scale and zp NaN and every
 //     code 0, as torch.amin / torch.clamp / .to(uint8) do in the plain
 //     version (jnp.min propagates NaN too); fminf would drop it.
@@ -46,68 +48,20 @@ constexpr int kLaneCap = 128;  // row elements a thread holds
 constexpr int kMaxWarps = 8;   // warps a CTA
 
 // ------------------------------------------------ row min/max -> params
-__device__ __forceinline__ float fmin_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// ascending floats -> ascending unsigned keys, and back
-__device__ __forceinline__ unsigned fkey(float f) {
-  const unsigned u = __float_as_uint(f);
-  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
-}
-
-__device__ __forceinline__ float funkey(unsigned k) {
-  return __uint_as_float(k ^ ((int)k < 0 ? 0x80000000u : 0xffffffffu));
-}
-
-struct RowQ {
-  float sc, z, r;
-  bool fast;
-};
-
-// The row parameters from each lane's lo / hi (NaN if the lane saw one;
-// +inf / -inf if it saw nothing): across the warp by redux.sync, then,
-// given `mm` (3 words a warp), across the CTA's warps, which hold one row.
+// The row parameters from each lane's lo / hi: across the warp
+// (warp_minmax), then, given `mm` (one entry a warp), across the CTA's
+// warps, which hold one row.
 template <int BITS>
 __device__ __forceinline__ RowQ row_params(float lo, float hi,
-                                           unsigned (*mm)[3] = nullptr) {
-  unsigned nan = __reduce_or_sync(kFull, (unsigned)(lo != lo));
-  unsigned klo = __reduce_min_sync(kFull, fkey(lo));
-  unsigned khi = __reduce_max_sync(kFull, fkey(hi));
+                                           MinMaxKeys* mm = nullptr) {
+  MinMaxKeys k = warp_minmax(lo, hi);
   const int warps = blockDim.x >> 5;
   if (mm != nullptr && warps > 1) {
-    if ((threadIdx.x & 31) == 0) {
-      mm[threadIdx.x >> 5][0] = nan;
-      mm[threadIdx.x >> 5][1] = klo;
-      mm[threadIdx.x >> 5][2] = khi;
-    }
+    if ((threadIdx.x & 31) == 0) mm[threadIdx.x >> 5] = k;
     __syncthreads();
-    for (int i = 0; i < warps; ++i) {
-      nan |= mm[i][0];
-      klo = min(klo, mm[i][1]);
-      khi = max(khi, mm[i][2]);
-    }
+    for (int i = 0; i < warps; ++i) merge_minmax(k, mm[i]);
   }
-  lo = funkey(klo);
-  hi = funkey(khi);
-  // 1 / qmax rounded to float32 (the constant is folded in IEEE
-  // round-to-nearest, the bits of __fdiv_rn)
-  constexpr float inv_qmax = 1.0f / float((1 << BITS) - 1);
-  RowQ p;
-  p.sc = nan ? __int_as_float(0x7fffffff)
-             : __fmul_rn(fmaxf(__fsub_rn(hi, lo), 1e-8f), inv_qmax);
-  p.z = rintf(__fdiv_rn(-lo, p.sc));
-  p.r = __frcp_rn(p.sc);
-  p.fast = __fmul_rn(fmaxf(fabsf(lo), fabsf(hi)), p.r) < 1e30f;
-  return p;
+  return row_qparams<BITS>(k);
 }
 
 // ------------------------------------------------ units
@@ -148,7 +102,7 @@ uaq_quantize_rows_kernel(const T* __restrict__ x, uint8_t* __restrict__ payload,
                          int D) {
   using Un = UnitOf<T, BITS>;
   constexpr int U = Un::U, NL = Un::NL, KU = kLaneCap / U;
-  __shared__ unsigned mm[kMaxWarps][3];
+  __shared__ MinMaxKeys mm[kMaxWarps];
   const int g = threadIdx.x;
   const int gstride = blockDim.x;
   const int row = blockIdx.x;

@@ -76,16 +76,16 @@ def boundary_pass(x, centers, bits: int = 8, use_kernel: bool = True):
     return ref.fused_boundary_ref(x, centers, bits)
 
 
-def wire_quantize(x, bits: int):
+def wire_quantize(x, bits: int, use_kernel: bool = True):
     """Shared 2-D wire quantize entry: x (M, N) -> (packed, scale, zp)."""
-    if bits in KERNEL_BITS:
+    if use_kernel and bits in KERNEL_BITS:
         return uaq_quantize(x, bits)
     return ref.uaq_quantize_ref(x, bits)
 
 
 def wire_dequantize(packed, scale, zp, bits: int, out_dtype=torch.float32,
-                    channels: Optional[int] = None):
-    if bits in KERNEL_BITS:
+                    channels: Optional[int] = None, use_kernel: bool = True):
+    if use_kernel and bits in KERNEL_BITS:
         return uaq_dequantize(packed, scale, zp, bits, out_dtype,
                               n=channels)
     return ref.uaq_dequantize_ref(packed, scale, zp, bits, out_dtype,

@@ -2,7 +2,8 @@
 layer groups -> norm -> lm head, for every mixer of the registry
 (attention, Mamba2/SSD) and every FFN (gated MLP, MoE).  Entry points:
 
-  forward(params, cfg, inputs)                 -> h, cache_or_None, aux
+  forward(params, cfg, inputs, remat=False)    -> h, cache_or_None, aux
+  forward_train(params, cfg, batch)            -> loss, {"nll", "aux"}
   prefill(params, cfg, inputs, max_seq)        -> logits_last, cache
   decode_step(params, cfg, cache, token, pos)  -> logits, cache
 
@@ -12,7 +13,9 @@ Parameters are a plain dict that mirrors the JAX package's pytree:
 ``cfg.num_groups``; decode caches have the same layout.  The JAX
 package's ``lax.scan`` over groups is a Python loop over that stacked
 axis here.  ``params_from_numpy`` converts a JAX parameter tree (with
-numpy leaves) so both packages compute the same function.
+numpy leaves) so both packages compute the same function.  Training
+takes gradients with autograd through these same functions: the JAX
+package defines no custom gradient, so neither does the port.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import require_device
 from repro_torch.models import layers as L
@@ -80,7 +84,11 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
             return tuple(conv(v) for v in t)
-        return torch.from_numpy(np.array(t)).to(dev)  # a writable copy
+        a = np.array(t)  # a writable copy
+        if a.dtype.name == "bfloat16":  # ml_dtypes' type: by its bits
+            return torch.from_numpy(a.view(np.uint16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
 
     return conv(tree)
 
@@ -161,21 +169,45 @@ def _block_decode(p, h, cache, pos: int, cfg: ModelConfig, spec: LayerSpec):
     return h, cache
 
 
+def _group_full(gp, h, cfg: ModelConfig, positions, want_cache: bool,
+                max_seq: int):
+    """One group (``cfg.pattern``'s blocks): (h, caches, its MoE aux or
+    None without MoE)."""
+    caches = []
+    aux = None
+    for i, spec in enumerate(cfg.pattern):
+        h, c, a = _block_full(gp[i], h, cfg, spec, positions, want_cache,
+                              max_seq)
+        caches.append(c)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return h, caches, aux
+
+
 def _groups_full(groups, h, cfg: ModelConfig, positions,
-                 want_cache: bool = False, max_seq: int = 0):
+                 want_cache: bool = False, max_seq: int = 0,
+                 remat: bool = False):
     """Apply a stack of layer groups (leaves stacked on axis 0) to h.
-    Returns (h, cache or None, MoE aux summed over the layers)."""
+    Returns (h, cache or None, MoE aux summed over the layers).  With
+    ``remat`` each group is checkpointed, as the JAX package checkpoints
+    its scan body: its activations are recomputed in the backward pass."""
     caches = [[] for _ in cfg.pattern]
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    auxs = []
     for g in range(group_count(groups)):
         gp = group_slice(groups, g)
-        for i, spec in enumerate(cfg.pattern):
-            h, c, a = _block_full(gp[i], h, cfg, spec, positions,
-                                  want_cache, max_seq)
+        if remat:
+            h, cs, a = checkpoint(_group_full, gp, h, cfg, positions,
+                                  want_cache, max_seq, use_reentrant=False)
+        else:
+            h, cs, a = _group_full(gp, h, cfg, positions, want_cache,
+                                   max_seq)
+        for i, c in enumerate(cs):
             caches[i].append(c)
-            if a is not None:
-                aux = aux + a
+        if a is not None:
+            auxs.append(a)
     cache = tuple(_stack(c) for c in caches) if want_cache else None
+    aux = torch.sum(torch.stack(auxs)) if auxs else torch.zeros(
+        (), dtype=torch.float32, device=h.device)
     return h, cache, aux
 
 
@@ -215,17 +247,69 @@ def positions_for(B: int, S: int, device) -> torch.Tensor:
 
 # ------------------------------------------------------------------ full forward
 def forward(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
-            max_seq: Optional[int] = None):
+            max_seq: Optional[int] = None, remat: bool = False):
     """Returns (h after the final norm, cache or None, aux): the cache
     (``want_cache``) is laid out as ``init_cache``'s, and ``aux`` is the
-    MoE load-balance loss summed over the layers (0 without MoE)."""
+    MoE load-balance loss summed over the layers (0 without MoE).
+    ``remat`` checkpoints each group (``torch.utils.checkpoint``)."""
     B, S = inputs.shape[0], inputs.shape[1]
     h = _embed(params, cfg, inputs)
     h, cache, aux = _groups_full(params["groups"], h, cfg,
                                  positions_for(B, S, h.device), want_cache,
-                                 max_seq or S)
+                                 max_seq or S, remat)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, cache, aux
+
+
+# sequence-chunked cross-entropy: full (B,S,V) float32 logits never exist
+# (with 256k vocabs they would dominate device memory)
+LOSS_CHUNK = 512
+
+
+def _xent_chunk(params, cfg: ModelConfig, hc, lc, mc):
+    """(summed NLL, count) of one chunk's masked positions."""
+    logits = _lm_head(params, cfg, hc).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+    tot = torch.sum(torch.where(mc, lse - gold, 0.0))
+    return tot, torch.sum(mc.to(torch.float32))
+
+
+def _chunked_xent(params, cfg: ModelConfig, h, labels, mask):
+    """h: (B,S,D); labels/mask: (B,S).  Mean NLL over masked positions.
+    The sequence is padded to a multiple of the chunk and taken one
+    checkpointed chunk at a time, so one chunk's logits exist at once, in
+    the forward and in the backward pass."""
+    B, S, D = h.shape
+    C = min(LOSS_CHUNK, S)
+    if S % C:
+        pad = C - S % C
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        S += pad
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, C):
+        t, n = checkpoint(_xent_chunk, params, cfg, h[:, c0:c0 + C],
+                          labels[:, c0:c0 + C], mask[:, c0:c0 + C],
+                          use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def forward_train(params, cfg: ModelConfig, batch, remat: bool = True):
+    """batch: {"tokens"|"embeds", "labels"}.  Returns (loss, metrics)."""
+    inputs = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    labels = batch["labels"]
+    h, _, aux = forward(params, cfg, inputs, remat=remat)
+    if not cfg.embed_inputs:  # next-token LM: shift
+        h, labels = h[:, :-1], labels[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.bool, device=h.device)
+    nll = _chunked_xent(params, cfg, h, labels, mask)
+    loss = nll + aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, inputs, max_seq: int):

@@ -227,3 +227,125 @@ def test_fused_hop_on_mamba_moe_and_hybrid_boundaries_matches_jax(arch,
         _np(r.monolithic(params, torch.from_numpy(toks))),
         np.asarray(jr.monolithic(jax.tree.map(jnp.asarray, jp),
                                  jnp.asarray(toks))), **TOL)
+
+
+# ----------------------------------------------------- two-pod pipeline
+_POD_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import load_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+from repro_torch.models import model as M
+rank, d = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=2)
+cfg = get_config("qwen3-14b").reduced()
+params = load_checkpoint(d, 0, M.init_params(cfg, seed=1, device="cpu"))
+tokens = torch.from_numpy(np.load(f"{d}/tokens.npy"))
+step = make_collab_pipeline_step(cfg, PodMesh(rank=rank), bits=8, n_micro=2)
+out = step(params, tokens)
+np.save(f"{d}/out{rank}.npy", out.numpy())
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def pods(tmp_path_factory):
+    """Reduced qwen3-14b through the gloo two-rank pipeline (two
+    processes, one pod each), on the JAX package's weights: (cfg, JAX
+    params, port params, tokens (2, 4, 32), each rank's logits)."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.checkpoint import save_checkpoint
+    d = tmp_path_factory.mktemp("pods")
+    cfg = get_config("qwen3-14b").reduced()
+    jp = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
+    params = M.params_from_numpy(jp, cfg, "cpu")
+    save_checkpoint(str(d), 0, params)
+    toks = _tokens(cfg, (2, 4, 32), 14)
+    np.save(d / "tokens.npy", toks)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _POD_SCRIPT, str(r),
+                               str(d)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    outs = [np.load(d / f"out{r}.npy") for r in (0, 1)]
+    return cfg, jp, params, toks, outs
+
+
+def test_two_pod_pipeline_matches_monolithic(pods):
+    """The twin of the JAX package's multi-pod test: each microbatch's
+    last-token logits within rel 0.05 (max|d| / max|ref|, its bound) of
+    the monolithic forward, and both ranks return the same logits."""
+    cfg, _, params, toks, outs = pods
+    assert outs[0].shape == (2, 4, cfg.vocab_size)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    for i in range(2):
+        h, _, _ = M.forward(params, cfg, torch.from_numpy(toks[i]))
+        ref_ = _np(M._lm_head(params, cfg, h)[:, -1])
+        rel = float(np.abs(outs[1][i] - ref_).max() / np.abs(ref_).max())
+        assert rel < 0.05, (i, rel)
+
+
+def test_two_pod_pipeline_matches_the_jax_composition(pods):
+    """The reference's pipeline, composed in JAX (first half of the
+    groups, ``wire_quantize``, ``wire_dequantize``, second half, final
+    norm, head), against the port's: each microbatch's dequantized
+    boundary within a quantum of JAX's (the halves round in other places,
+    so a code may round the other way); on JAX's packet the port's second
+    half gives JAX's logits within ``TOL``; the pipeline gives the port's
+    own composition within ``TOL``."""
+    from repro.core.collab import _run_groups
+    from repro.kernels import ops as JOPS
+    from repro.models import layers as JL
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.models import layers as TL
+    cfg, jp, params, toks, outs = pods
+    half, D = cfg.num_groups // 2, cfg.d_model
+    jparams = jax.tree.map(jnp.asarray, jp)
+    jg = [jax.tree.map(lambda x, k=k: x[k * half:(k + 1) * half],
+                       jparams["groups"]) for k in (0, 1)]
+    tg = [M.group_slice(params["groups"], slice(k * half, (k + 1) * half))
+          for k in (0, 1)]
+    B, S = toks.shape[1:]
+    jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    tpos = M.positions_for(B, S, "cpu")
+
+    def t_tail(h):
+        h = M.run_groups(tg[1], h, cfg, tpos)
+        h = TL.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return _np(M._lm_head(params, cfg, h[:, -1]))
+
+    for i in range(2):
+        jh = _run_groups(jg[0], JM._embed(jparams, cfg, jnp.asarray(toks[i])),
+                         cfg, jpos)
+        jpkt = JOPS.wire_quantize(jh.reshape(-1, D), 8)
+        jdeq = JOPS.wire_dequantize(*jpkt, 8, channels=D).reshape(B, S, D)
+        jh2 = JL.rms_norm(_run_groups(jg[1], jdeq, cfg, jpos),
+                          jparams["final_norm"], cfg.norm_eps)
+        jlogits = np.asarray(JM._lm_head(jparams, cfg, jh2[:, -1]))
+        th = M.run_groups(tg[0], M._embed(params, cfg,
+                                          torch.from_numpy(toks[i])),
+                          cfg, tpos)
+        tpkt = KOPS.wire_quantize(th.reshape(-1, D), 8)
+        tdeq = KOPS.wire_dequantize(*tpkt, 8, channels=D).reshape(B, S, D)
+        assert (np.abs(_np(tdeq) - np.asarray(jdeq))
+                <= np.asarray(jpkt[1]).reshape(B, S, 1) * 1.001).all()
+        np.testing.assert_allclose(
+            t_tail(torch.from_numpy(np.array(jdeq))), jlogits, **TOL)
+        np.testing.assert_allclose(outs[1][i], t_tail(tdeq), **TOL)
+
+
+def test_two_pod_pipeline_needs_an_even_group_count():
+    from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+    cfg = get_config("qwen3-14b").reduced(num_layers=3)
+    assert cfg.num_groups == 3
+    with pytest.raises(ValueError):
+        make_collab_pipeline_step(cfg, PodMesh(rank=0))

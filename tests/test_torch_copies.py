@@ -184,6 +184,9 @@ def test_every_port_module_imports_with_jax_blocked():
         "repro_torch.kernels.boundary" in mods
     assert {f"repro_torch.{rel[:-3].replace('/', '.')}".removesuffix(
         ".__init__") for rel in COPIES} <= set(mods)
+    assert {"repro_torch.core.quant", "repro_torch.training.optim",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"

@@ -446,3 +446,197 @@ def _as_numpy(tree):
     if isinstance(tree, tuple):
         return tuple(_as_numpy(v) for v in tree)
     return tree.numpy()
+
+
+# ------------------------------------------------ NaN through K1 and K4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,S,N", [(4, 2, 768), (4, 2, 2304),
+                                   (1024, 2, 2304), (7, 1, 33), (1, 8, 2304),
+                                   (1, 6, 16)])
+def test_fused_boundary_on_signed_zeros_and_nan_matches_plain(cuda, B, S, N,
+                                                              bits, dtype):
+    """K1's twin of the quantize's test: the same rows, as (B, S, N)
+    tokens.  Codes and scale are the plain version's bits, zp its value
+    (-0.0 == +0.0), and a row holding a NaN gets NaN scale and zp and
+    all-zero codes; the feature, sims and sep of a batch row that holds a
+    NaN are NaN where the plain version's are, its ``best`` the plain
+    version's (the first NaN sim), and the other rows' probe fields within
+    PROBE_TOL.  Rows of several warps, of one, of the scalar path, serve's
+    shape and the smallest."""
+    x = _signed_zero_and_nan_rows(B * S, N, cuda).to(dtype).reshape(B, S, N)
+    c = _inputs(1, 1, N, 5, cuda, seed=N)[1]
+    got = fused_boundary(x, c, bits)
+    want = ref.fused_boundary_ref(x, c, bits)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), i
+        if i in (3, 4, 6):  # feat, sep, sims
+            _near(torch.nan_to_num(g), torch.nan_to_num(w))
+        else:
+            assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)), i
+    scale = got[1].reshape(-1)
+    assert bool(torch.isnan(scale[3]) and torch.isnan(scale[5]))
+    assert not bool(got[0].reshape(B * S, -1)[3].any())
+
+
+def _nan_cases(D, L, device):
+    """(x, centers) pairs: a center holding a NaN, two such centers (the
+    first NaN index wins), a NaN center past the first 32, and a token
+    holding a NaN (every sim of its batch row NaN)."""
+    x, c = _inputs(3, 8, D, L, device, seed=D + L)
+    cases = []
+    for rows in ((2,), (4, 1), (L - 1,)):
+        cc = c.clone()
+        for r in rows:
+            cc[r, r % D] = float("nan")
+        cases.append((x, cc))
+    xx = x.clone()
+    xx[1, 3, D // 2] = float("nan")
+    cases.append((xx, c))
+    return cases
+
+
+@pytest.mark.parametrize("probe", ["fused_boundary", "semantic_probe"])
+@pytest.mark.parametrize("D,L", [(2304, 40), (768, 16), (33, 37), (16, 5)])
+def test_nan_center_or_feature_picks_best_as_plain(cuda, probe, D, L):
+    """``best`` is torch.argmax's (the first NaN sim is the max) and sep
+    and sims are NaN where the plain version's are, else within
+    PROBE_TOL."""
+    fn, plain, at = {
+        "fused_boundary": (lambda x, c: fused_boundary(x, c, 8),
+                           lambda x, c: ref.fused_boundary_ref(x, c, 8),
+                           (4, 5, 6)),
+        "semantic_probe": (semantic_probe, ref.semantic_probe_ref,
+                           (0, 1, 2)),
+    }[probe]
+    for x, c in _nan_cases(D, L, cuda):
+        got, want = fn(x, c), plain(x, c)
+        sep, best, sims = (got[i] for i in at)
+        wsep, wbest, wsims = (want[i] for i in at)
+        assert torch.equal(best, wbest), (best, wbest)
+        for g, w in ((sep, wsep), (sims, wsims)):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            _near(torch.nan_to_num(g), torch.nan_to_num(w))
+    assert bool(torch.isnan(wsep[1]))  # the NaN token's batch row
+
+
+# ------------------------------------------------ serve's decisions
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_serve_on_card_makes_the_cpu_decisions(cuda, arch, monkeypatch,
+                                               capsys):
+    """``serve`` on the card and on the CPU, 24 requests, on the same
+    CPU-drawn weights: the printed cut and offline bits, and every task's
+    online decision, equal; a task may decide otherwise only where its
+    separability lies within PROBE_TOL of a threshold it was taken
+    against, and the exit ratio and mean bits are equal when no task
+    does."""
+    from repro_torch.core import online as ON
+    from repro_torch.launch.serve import serve
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    logs = {"cpu": [], "cuda": []}
+    where = ["cpu"]
+    step = ON.OnlineScheduler.step
+
+    def wrapped(self, feat, *a, **kw):
+        dec = step(self, feat, *a, **kw)
+        logs[where[0]].append((dec, self.th))
+        return dec
+
+    monkeypatch.setattr(ON.OnlineScheduler, "step", wrapped)
+    want = serve(arch, requests=24, device="cpu", params=params)
+    out_cpu = capsys.readouterr().out.splitlines()
+    where[0] = "cuda"
+    got = serve(arch, requests=24, device=cuda, params=gparams)
+    out_cuda = capsys.readouterr().out.splitlines()
+    assert out_cuda[0] == out_cpu[0] and "cut_group=" in out_cuda[0]
+    assert len(logs["cpu"]) == len(logs["cuda"]) == 24
+    differ = 0
+    for (wd, wth), (gd, gth) in zip(logs["cpu"], logs["cuda"]):
+        np.testing.assert_allclose(gd.separability, wd.separability,
+                                   **PROBE_TOL)
+        if (wd.early_exit, wd.bits) == (gd.early_exit, gd.bits):
+            continue
+        differ += 1
+        cuts = [wth.s_ext] + [f for f, _ in wth.s_adj]
+        assert any(abs(wd.separability - t) <= PROBE_TOL["atol"]
+                   + PROBE_TOL["rtol"] * abs(t) for t in cuts), (wd, gd)
+    if not differ:
+        assert got.exit_ratio == want.exit_ratio
+        assert got.mean_bits == want.mean_bits
+        assert [t.early_exit for t in got.pipeline.tasks] == \
+            [t.early_exit for t in want.pipeline.tasks]
+
+
+# ------------------------------------------------ two-pod pipeline
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_stream_pipeline_matches_serial_plain_and_monolithic(cuda,
+                                                                  dtype):
+    """The card form of the two-pod pipeline on reduced qwen3-14b (8 bits,
+    2 microbatches of (4, 32) tokens): with the pods on two streams it
+    equals the pods on one stream and the run with the plain quantize and
+    dequantize bit for bit, launches K3 and K2 once a microbatch, and each
+    microbatch is within rel 0.05 (max|d| / max|ref|) of the monolithic
+    forward."""
+    from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+    from repro_torch.training.optim import tree_map
+    cfg = get_config("qwen3-14b").reduced()
+    params = tree_map(lambda t: t.to(cuda, dtype),
+                      M.init_params(cfg, seed=0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 4, 32)).astype(np.int32)).to(cuda)
+    KB.LAUNCHES.clear()
+    two = make_collab_pipeline_step(cfg, PodMesh.on_card(cuda))(params, toks)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["uaq_quantize"] == KB.LAUNCHES["uaq_dequantize"] == 2
+    one = make_collab_pipeline_step(cfg, PodMesh.on_card(
+        cuda, overlap=False))(params, toks)
+    plain = make_collab_pipeline_step(cfg, PodMesh.on_card(cuda),
+                                      use_kernel=False)(params, toks)
+    assert two.shape == (2, 4, cfg.vocab_size) and two.dtype == dtype
+    assert torch.equal(two, one) and torch.equal(two, plain)
+    for i in range(2):
+        h, _, _ = M.forward(params, cfg, toks[i])
+        want = M._lm_head(params, cfg, h)[:, -1].float()
+        rel = float((two[i].float() - want).abs().max() / want.abs().max())
+        assert rel < 0.05, (i, rel)
+
+
+# ------------------------------------------------ training on the card
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
+    """One train step's loss (1e-5 relative) and each gradient leaf (1e-3
+    relative L2: fp32 forward and backward on another device) on the card
+    against the CPU, on the same CPU-drawn weights and batch; then a
+    checkpoint of the stepped params and AdamW state saved on the card
+    loads back bit-equal."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves, tree_map)
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    b = {"tokens": toks, "labels": toks}
+    loss, _, grads = ST.loss_and_grads(params, cfg, b)
+    gloss, _, ggrads = ST.loss_and_grads(
+        gparams, cfg, {k: v.to(cuda) for k, v in b.items()})
+    assert float(gloss) == pytest.approx(float(loss), rel=1e-5)
+    for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)):
+        err = float(torch.linalg.vector_norm(g.cpu() - w))
+        assert err <= 1e-3 * float(torch.linalg.vector_norm(w)) + 1e-12
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    p2, o2, _, _ = ST.make_train_step(cfg, opt_cfg, donate=True)(
+        gparams, adamw_init(gparams, opt_cfg),
+        {k: v.to(cuda) for k, v in b.items()})
+    tree = {"params": p2, "opt": o2}
+    save_checkpoint(str(tmp_path), 1, tree)
+    back = load_checkpoint(str(tmp_path), 1, tree_map(torch.zeros_like, tree))
+    for a, w in zip(tree_leaves(back), tree_leaves(tree)):
+        assert a.device == w.device and a.dtype == w.dtype
+        assert torch.equal(a, w)
