@@ -34,7 +34,8 @@ Phases (any failure exits non-zero before the last line):
   5. on a runtime over the same weights, run the unfused hop (quantize +
      dequantize kernels) and the standalone probe (semantic-probe
      kernel), check the logits against the monolithic forward, time one
-     steady request and profile where its device time goes;
+     steady request, profile where its device time goes, and diff the
+     kernel-name histograms of two more profiles of it;
   6. phases 4 and 5 on full-width mamba2-130m (24 layers);
   7. phases 4 and 5 on full-width mixtral-8x7b cut to 4 of its 32 layers
      (the 32 take ~187 GB in fp32, more than one card holds);
@@ -66,6 +67,15 @@ Phases (any failure exits non-zero before the last line):
      card, and ``launch.train.train`` on full-width gemma2-2b (fp32, 5
      steps of 8 x 256 tokens): ms per step, tokens per second, peak
      memory and the fp32 bound;
+  12. the launch tooling on DTensor: (a) on the 1x1 card mesh (a one-rank
+     NCCL group), full-width gemma2-2b's prefill and 8 decode steps with
+     the parameters as DTensors in the serving layout and the activation
+     constraints live, bit-equal to the same steps on plain tensors (the
+     ms of a decode step with and without DTensor), and a train step of
+     the 4-layer gemma2-2b in the FSDP layout: loss bit-equal, gradients
+     within 1e-6; (b) in a subprocess, the dry-run of gemma2-2b train_4k
+     and mixtral-8x7b decode_32k on the 16x16 mesh of a fake 256-rank
+     group: per device flops, HBM and collective bytes, roofline terms;
   then print each phase's numbers, the card's name and power limit, the
   kernels' JSON line (launches summed over phases 4-7's, 9's and 10's
   main-path runs), and the contract line.
@@ -590,6 +600,26 @@ def profile_requests(torch, request, n):
     return round(busy, 4), round(1 - busy / wall, 4), round(launches, 1)
 
 
+def profile_drift(torch, request, n):
+    """Two profiles of ``n`` calls of the same steady ``request``: the
+    kernel names whose launch counts differ between them, as {name:
+    [count in the first, count in the second]} (empty when the two
+    histograms agree), and the two totals."""
+    hists = []
+    for _ in range(2):
+        rows, _ = device_profile(torch, request, n)
+        hists.append({name: round(count * n) for name, count, _ in rows})
+    diff = {name: [hists[0].get(name, 0), hists[1].get(name, 0)]
+            for name in set(hists[0]) | set(hists[1])
+            if hists[0].get(name, 0) != hists[1].get(name, 0)}
+    totals = [sum(h.values()) for h in hists]
+    log(f"  profiler drift over two profiles of {n} requests: records "
+        f"{totals[0]} and {totals[1]}; names that come and go: "
+        + (", ".join(f"{k[:80]} {v[0]} -> {v[1]}" for k, v in
+                     sorted(diff.items())) or "none"))
+    return {"records": totals, "differs": diff}
+
+
 def rel_err(torch, a, b):
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b))
@@ -638,8 +668,9 @@ def runtime_check(torch, cfg, params, bounds):
     split against monolithic logits at 4 and 8 bits within ``bounds``;
     the hop's packet and dequantized values against the plain versions on
     the same boundary activation; one steady request (fused end step +
-    cloud step) timed and profiled.  Returns (launches, request ms, device
-    busy ms or None)."""
+    cloud step) timed and profiled, and profiled twice more to diff the
+    kernel-name histograms.  Returns (launches, request ms, device busy ms
+    or None, the profiler drift)."""
     from repro_torch.core.collab import CollabRuntime
     from repro_torch.core.costs import (A6000_SERVER, JETSON_NX, WIFI_5GHZ,
                                         transformer_graph)
@@ -700,7 +731,8 @@ def runtime_check(torch, cfg, params, bounds):
     req_ms = statistics.median(per) * 1e3
     log(f"steady request (end segment + fused boundary + dequantize + "
         f"cloud segment + head): {req_ms:.2f} ms median of 10")
-    return launches, req_ms, profile_requests(torch, request, 3)[0]
+    busy = profile_requests(torch, request, 3)[0]
+    return launches, req_ms, busy, profile_drift(torch, request, 3)
 
 
 def boundary_activation(rt, toks, hop):
@@ -1281,6 +1313,152 @@ def train_full_width(torch, M):
             "fp32_bound_ms": bound, "params": n}
 
 
+# ------------------------------------------------------------ phase 12
+# the dry-run pairs of phase 12 (b), on the 16x16 mesh of a fake group
+DRYRUN_PAIRS = [["gemma2-2b", "train_4k"], ["mixtral-8x7b", "decode_32k"]]
+_DRYRUN = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+D.init_fake_group(256)
+out = {}
+for arch, shape in json.loads(sys.argv[1]):
+    _, rep = D.lower_pair(arch, shape, False)
+    out[f"{arch} {shape}"] = rep
+print(json.dumps(out))
+"""
+
+
+def full(t):
+    """A DTensor's global value (here one device holds all of it)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def dtensor_serve_check(torch, M, mesh):
+    """Full-width gemma2-2b, a prefill of (2, 64) tokens and 8 decode
+    steps through ``make_prefill_step`` / ``make_serve_step``: the params
+    as DTensors in the serving layout on the 1x1 card mesh with the hooks
+    live, against the same steps on plain tensors (the same inputs): every
+    logit bit-equal.  Returns (max |d| over the steps, decode ms plain,
+    decode ms DTensor)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, activation_specs,
+                                             batch_spec, distribute,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
+    cfg = get_config("gemma2-2b")
+    params = init_params(torch, M, cfg)
+    B, S, steps = 2, 64, 8
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill = ST.make_prefill_step(cfg, max_seq=S + steps)
+    serve = ST.make_serve_step(cfg)
+
+    def run(p, wrap):
+        logits, cache = prefill(p, wrap(toks[:, :S]))
+        outs, ms = [full(logits)], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = serve(p, cache, wrap(toks[:, S + i:S + i + 1]),
+                                  S + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(full(logits))
+        return outs, statistics.median(ms)
+
+    with torch.no_grad():
+        want, ms_plain = run(params, lambda x: x)
+        with activation_sharding(activation_specs(cfg, mesh, B)), \
+                implicit_replication():
+            dp = distribute(params, shard_params(params, mesh, cfg,
+                                                 serving=True))
+            got, ms_dt = run(dp, lambda x: distribute(x, NamedSharding(
+                mesh, batch_spec(mesh, B, 1))))
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"  gemma2-2b full width, serving layout on the 1x1 mesh: prefill "
+        f"+ {steps} decode steps, logits bit-equal to plain tensors: "
+        f"{equal} (max |d| {worst:.3g}); decode step {ms_plain:.2f} ms "
+        f"plain, {ms_dt:.2f} ms DTensor (+{ms_dt - ms_plain:.2f} ms of "
+        f"DTensor dispatch on the host)")
+    assert equal, f"DTensor logits differ from plain ones by {worst}"
+    return worst, ms_plain, ms_dt
+
+
+def dtensor_train_check(torch, M, mesh):
+    """One train step's loss and gradients of full-width gemma2-2b cut
+    to 4 layers (phase 11's step, B = 2, S = 64) in the FSDP layout on the
+    1x1 card mesh against plain tensors: loss bit-equal, every gradient
+    leaf within 1e-6 relative L2.  Returns (loss rel, worst leaf)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, activation_specs,
+                                             batch_spec, distribute,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
+    from repro_torch.training.optim import tree_leaves
+    cfg = dataclasses.replace(get_config("gemma2-2b"), num_layers=4)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(12)
+                         ).to("cuda")
+    b = {"tokens": toks, "labels": toks}
+    loss, _, grads = ST.loss_and_grads(params, cfg, b)
+    with activation_sharding(activation_specs(cfg, mesh, 2)), \
+            implicit_replication():
+        dp = distribute(params, shard_params(params, mesh, cfg))
+        db = distribute(b, {k: NamedSharding(mesh, batch_spec(mesh, 2, 1))
+                            for k in b})
+        dloss, _, dgrads = ST.loss_and_grads(dp, cfg, db)
+    dloss = full(dloss)
+    lrel = abs(float(dloss) - float(loss)) / abs(float(loss))
+    worst = max(float(torch.linalg.vector_norm(full(g) - w)
+                      / torch.linalg.vector_norm(w))
+                for g, w in zip(tree_leaves(dgrads), tree_leaves(grads)))
+    log(f"  gemma2-2b 4 layers, FSDP layout on the 1x1 mesh: loss "
+        f"{float(dloss):.7f} DTensor vs {float(loss):.7f} plain (bit-equal: "
+        f"{bool(torch.equal(dloss, loss))}); worst gradient leaf rel L2 "
+        f"{worst:.3g} (< 1e-6)")
+    assert torch.equal(dloss, loss) and worst < 1e-6, (lrel, worst)
+    return lrel, worst
+
+
+def dryrun_check():
+    """``launch.dryrun`` of DRYRUN_PAIRS on the 16x16 mesh of a fake
+    256-rank group, in a subprocess of its own: per device the flops, HBM
+    bytes, collective bytes by kind, the roofline terms and the trace
+    seconds."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", _DRYRUN,
+                        json.dumps(DRYRUN_PAIRS)], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, f"the dry-run failed: {r.stderr[-3000:]}"
+    reps = json.loads(r.stdout.strip().splitlines()[-1])
+    out = {}
+    for pair, rep in reps.items():
+        roof, coll = rep["roofline"], rep["collectives"]
+        log(f"  {pair} on {rep['mesh']} ({rep['devices']} devices, "
+            f"{'serving' if rep['serving_layout'] else 'FSDP'} layout), per "
+            f"device: {roof['flops']:.4g} flops, {roof['hbm_bytes']:.4g} HBM "
+            f"bytes, collectives " + ", ".join(
+                f"{k} {v:.4g}" for k, v in coll.items()) +
+            f" B; t_compute {roof['t_compute_s']:.4g} s, t_memory "
+            f"{roof['t_memory_s']:.4g} s, t_collective "
+            f"{roof['t_collective_s']:.4g} s ({roof['bottleneck']}); "
+            f"memory {rep['memory']['total_nonalias_bytes'] / 1e9:.2f} GB; "
+            f"traced in {rep['trace_s']} s")
+        assert roof["flops"] > 0 and roof["hbm_bytes"] > 0 and all(
+            math.isfinite(v) for v in coll.values()), rep
+        out[pair] = {k: rep[k] for k in ("trace_s", "memory", "cost",
+                                         "collectives", "roofline",
+                                         "useful_flop_frac")}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1361,11 +1539,12 @@ def main() -> int:
     add_launches(serve_launches)
 
     log("== phase 5: unfused hop and standalone probe on the same weights")
-    second_launches, req_ms, busy_ms = runtime_check(torch, cfg, params,
-                                                     SPLIT_BOUND)
+    second_launches, req_ms, busy_ms, drift = runtime_check(
+        torch, cfg, params, SPLIT_BOUND)
     add_launches(second_launches)
     results["gemma2-2b"] = {"serve_wall_s": wall, "request_ms": req_ms,
-                            "request_device_busy_ms": busy_ms}
+                            "request_device_busy_ms": busy_ms,
+                            "profiler_drift": drift}
 
     for phase, name, cfg in (
             (6, "mamba2-130m", get_config("mamba2-130m")),
@@ -1378,12 +1557,13 @@ def main() -> int:
         params = init_params(torch, M, cfg)
         lw, wall = serve_check(torch, name, params)
         add_launches(lw)
-        lr, req_ms, busy_ms = runtime_check(torch, cfg, params,
-                                            SPLIT_BOUND_SCALED)
+        lr, req_ms, busy_ms, drift = runtime_check(torch, cfg, params,
+                                                   SPLIT_BOUND_SCALED)
         add_launches(lr)
         results[name] = {"layers": cfg.num_layers, "serve_wall_s": wall,
                          "request_ms": req_ms,
-                         "request_device_busy_ms": busy_ms}
+                         "request_device_busy_ms": busy_ms,
+                         "profiler_drift": drift}
 
     log("== phase 8: greedy generation, 32 tokens after 64")
     # phase 7's mixtral weights first (dropless, as tests/test_decode.py
@@ -1464,6 +1644,24 @@ def main() -> int:
     results["training"] = res
     torch.cuda.empty_cache()
     log(f"phase 11 in {time.time() - t11:.1f}s (budget 180 s)")
+
+    log("== phase 12: the launch tooling on DTensor")
+    t12 = time.time()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh("cuda")
+    log(f" (a) the 1x1 card mesh: {mesh}")
+    worst, ms_plain, ms_dt = dtensor_serve_check(torch, M, mesh)
+    torch.cuda.empty_cache()
+    lrel, gworst = dtensor_train_check(torch, M, mesh)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(" (b) the dry-run on the 16x16 mesh (a subprocess)")
+    results["dtensor"] = {
+        "serve_max_abs_diff": worst, "decode_ms_plain": ms_plain,
+        "decode_ms_dtensor": ms_dt, "train_loss_rel": lrel,
+        "train_worst_grad_rel_l2": gworst, "dryrun": dryrun_check()}
+    log(f"phase 12 in {time.time() - t12:.1f}s (budget 60 s)")
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \
         "the port imported JAX or the JAX package"

@@ -1,21 +1,28 @@
-"""Step functions (train / prefill / decode) in PyTorch, mirroring
-``repro.launch.steps``: shared by the training launcher and the tests.
+"""Step functions (train / prefill / decode) and abstract input specs for
+every (architecture x input shape) pair in PyTorch, mirroring
+``repro.launch.steps``: shared by the dry-run, the training launcher and
+the tests.
 
 Gradients come from autograd through ``models.model.forward_train`` (the
 JAX package takes ``jax.value_and_grad`` of the same function).  The
-abstract specs of the reference (``abstract_*``, ``input_specs``) serve
-its XLA dry-run and are not ported here.
+abstract specs are trees of ``device="meta"`` tensors (the reference's
+``jax.ShapeDtypeStruct`` stand-ins): shapes and dtypes, never allocated,
+so the 398B configs cost nothing here.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
+from repro_torch.configs import InputShape
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.training.optim import (AdamWConfig, adamw_update,
-                                        tree_from_leaves, tree_leaves,
-                                        tree_map)
+from repro_torch.models.shardctx import reshape
+from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                        adamw_update, tree_from_leaves,
+                                        tree_leaves, tree_map)
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True):
@@ -42,8 +49,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss, metrics, grads = loss_and_grads(params, cfg, batch)
         else:
             K = microbatches
-            mbs = [tree_map(lambda x: x.reshape((K, x.shape[0] // K)
-                                                + x.shape[1:])[i], batch)
+            mbs = [tree_map(lambda x: reshape(x, (K, x.shape[0] // K)
+                                              + x.shape[1:])[i], batch)
                    for i in range(K)]
             grads, losses, mets = None, [], []
             for b in mbs:
@@ -92,3 +99,46 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, cache, tokens, pos):
         return M.decode_step(params, cfg, cache, tokens, pos)
     return serve_step
+
+
+# ----------------------------------------------------------------- specs
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16):
+    return M.init_params(cfg, dtype=dtype, device="meta")
+
+
+def abstract_opt_state(aparams, opt_cfg: AdamWConfig):
+    return adamw_init(aparams, opt_cfg)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype=torch.bfloat16):
+    return M.init_cache(cfg, batch, max_seq, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Abstract model inputs for one assigned input shape.
+
+    train:   {"tokens"|"embeds", "labels"}
+    prefill: {"inputs"}
+    decode:  {"tokens"|"embeds" (B,1[,D]), "pos"} (+ cache built separately)
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(*s):
+        return torch.empty(s, dtype=torch.int32, device="meta")
+
+    def emb(*s):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        x = {"embeds": emb(B, S, cfg.d_model)} if cfg.embed_inputs \
+            else {"tokens": tok(B, S)}
+        return {**x, "labels": tok(B, S)}
+    if shape.kind == "prefill":
+        return {"inputs": emb(B, S, cfg.d_model) if cfg.embed_inputs
+                else tok(B, S)}
+    if shape.kind == "decode":
+        x = emb(B, 1, cfg.d_model) if cfg.embed_inputs else tok(B, 1)
+        return {"inputs": x, "pos": tok()}
+    raise ValueError(shape.kind)

@@ -10,6 +10,7 @@ fused library attention.  Full-sequence attention is query-chunked over
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.shardctx import constrain, on_shards, reshape
 
 # Query-chunk length for memory-efficient full-sequence attention.
 Q_CHUNK = 1024
@@ -54,7 +56,8 @@ def rope_angles(positions, head_dim: int, theta: float,
             positions = positions[None].expand((3,) + tuple(positions.shape))
         sec_id = torch.repeat_interleave(
             torch.arange(3, device=positions.device),
-            torch.tensor(mrope_sections, device=positions.device))  # (half,)
+            torch.tensor(mrope_sections, device=positions.device),
+            output_size=half)  # (half,)
         pos = positions[sec_id]  # (half, ..., S)
         ang = torch.movedim(pos, 0, -1).to(torch.float32) * inv_freq
     else:
@@ -102,9 +105,9 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
 def _qkv(params, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, h, hd)
-    k = (x @ params["wk"]).reshape(B, S, kv, hd)
-    v = (x @ params["wv"]).reshape(B, S, kv, hd)
+    q = reshape(x @ params["wq"], B, S, h, hd)
+    k = reshape(x @ params["wk"], B, S, kv, hd)
+    v = reshape(x @ params["wv"], B, S, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -113,7 +116,8 @@ def _qkv(params, x, cfg: ModelConfig, positions):
                                cfg.mrope_sections)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return (constrain(q, "q_heads"), constrain(k, "kv_heads"),
+            constrain(v, "kv_heads"))
 
 
 def _scores_mask(q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
@@ -132,7 +136,17 @@ def _scores_mask(q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
 
 
 def _attend(q, k, v, mask, cfg: ModelConfig):
-    """q: (B,Q,H,hd)  k/v: (B,K,KV,hd)  mask: (Q,K) or (B,Q,K)."""
+    """q: (B,Q,H,hd)  k/v: (B,K,KV,hd)  mask: (Q,K) or (B,Q,K).  On
+    DTensors each device attends its own batch rows and heads."""
+    out = on_shards(functools.partial(_attend_rows, cfg=cfg),
+                    (q, k, v, mask),
+                    dims=((0, 2), (0, 2), (0, 2),
+                          (0 if mask.dim() == 3 else None, None)),
+                    out_dims=(0, 2))
+    return constrain(out, "attn_out")
+
+
+def _attend_rows(q, k, v, mask, cfg: ModelConfig):
     B, Q, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -201,6 +215,15 @@ def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     }
 
 
+def pad_seq(t, n: int, front: bool = False):
+    """``t`` with ``n`` zero steps appended to (or put in front of) its
+    axis 1: ``F.pad``'s values by a concatenation, which DTensor's rules
+    take in every torch release (some mishandle ``constant_pad_nd``)."""
+    z = torch.zeros((t.shape[0], n) + tuple(t.shape[2:]), dtype=t.dtype,
+                    device=t.device)
+    return torch.cat([z, t] if front else [t, z], dim=1)
+
+
 def prefill_to_cache(cfg, spec, k, v, max_seq: int):
     """Convert full-sequence rope'd k/v (B,S,KV,hd) into a decode cache of
     length ``cache_len`` (ring layout: slot = pos % L)."""
@@ -209,23 +232,25 @@ def prefill_to_cache(cfg, spec, k, v, max_seq: int):
     dev = k.device
     if L == max_seq and S <= L:
         pad = L - S
-        kc = F.pad(k, (0, 0, 0, 0, 0, pad))
-        vc = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kc = pad_seq(k, pad)
+        vc = pad_seq(v, pad)
         pos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
                          torch.full((pad,), -1, dtype=torch.int32,
                                     device=dev)])
         return {"k": kc, "v": vc, "pos": pos}
-    # keep last L positions, ring-ordered
+    # keep last L positions, ring-ordered: position p in slot p % L, so
+    # the last L positions rolled by start % L (a roll as two slices: not
+    # every torch release has a DTensor rule for roll)
     start = S - L
     ppos = start + torch.arange(L, dtype=torch.int32, device=dev)
-    slots = (ppos % L).long()
-    kc = torch.zeros((B, L, KV, hd), dtype=k.dtype, device=dev)
-    vc = torch.zeros((B, L, KV, hd), dtype=v.dtype, device=dev)
-    kc[:, slots] = k[:, start:]
-    vc[:, slots] = v[:, start:]
-    pos = torch.zeros((L,), dtype=torch.int32, device=dev)
-    pos[slots] = ppos
-    return {"k": kc, "v": vc, "pos": pos}
+    cut = L - start % L
+
+    def ring(t, dim):
+        t = t.narrow(dim, t.shape[dim] - L, L)
+        return torch.cat([t.narrow(dim, cut, L - cut),
+                          t.narrow(dim, 0, cut)], dim=dim)
+
+    return {"k": ring(k, 1), "v": ring(v, 1), "pos": ring(ppos, 0)}
 
 
 def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
@@ -236,15 +261,19 @@ def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)  # (B,1,·,hd), rope'd at abs pos
     L = cache["k"].shape[1]
-    slot = pos % L
-    kc, vc, cpos = cache["k"].clone(), cache["v"].clone(), \
-        cache["pos"].clone()
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
-    cpos[slot] = pos
+    # the new entry goes to slot pos % L by selection, not by an indexed
+    # write: a select keeps the cache's sequence sharding on DTensors
+    hit = torch.arange(L, device=x.device) == pos % L
+    kc = torch.where(hit[:, None, None], k.to(cache["k"].dtype), cache["k"])
+    vc = torch.where(hit[:, None, None], v.to(cache["v"].dtype), cache["v"])
+    cpos = torch.where(hit, pos, cache["pos"])
     mask = _scores_mask(positions[0], cpos, cfg, spec, causal=True)  # (1,L)
     out = _attend(q, kc, vc, mask, cfg)
-    return out @ params["wo"], {"k": kc, "v": vc, "pos": cpos}
+    # the (B, H*hd) @ wo product matmul folds (B, 1, H*hd) into; a DTensor
+    # can carry another stride on the size-1 query dim, which stops the
+    # fold and runs a bmm over an expanded wo, summed in another order
+    return (out[:, 0] @ params["wo"])[:, None], {"k": kc, "v": vc,
+                                                 "pos": cpos}
 
 
 # --------------------------------------------------------------------------- MLP
@@ -269,5 +298,6 @@ def activation(x, act: str):
 
 
 def mlp(params, x, act: str = "silu"):
-    return (activation(x @ params["w_gate"], act) * (x @ params["w_up"])) \
-        @ params["w_down"]
+    h = constrain(activation(x @ params["w_gate"], act)
+                  * (x @ params["w_up"]), "ffn")
+    return h @ params["w_down"]

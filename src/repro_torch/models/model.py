@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import require_device
@@ -31,6 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.shardctx import constrain, on_shards
 
 
 # ------------------------------------------------------------------------ init
@@ -38,9 +40,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the numbers differ from ``jax.random``'s; use
-    ``params_from_numpy`` to run the JAX package's weights)."""
+    ``params_from_numpy`` to run the JAX package's weights).  On
+    ``device="meta"`` the tree is abstract: shapes and dtypes, no numbers
+    and no generator."""
     dev = require_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     G = (cfg.num_groups,)
     params: Dict[str, Any] = {}
     if not cfg.embed_inputs:
@@ -178,6 +183,7 @@ def _group_full(gp, h, cfg: ModelConfig, positions, want_cache: bool,
     for i, spec in enumerate(cfg.pattern):
         h, c, a = _block_full(gp[i], h, cfg, spec, positions, want_cache,
                               max_seq)
+        h = constrain(h, "hidden")
         caches.append(c)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -217,11 +223,19 @@ def run_groups(groups, h, cfg: ModelConfig, positions):
 
 
 # ------------------------------------------------------------------- embeddings
+def _lookup(ids, table):
+    return table[ids.long()]
+
+
 def _embed(params, cfg: ModelConfig, inputs):
     if cfg.embed_inputs:
         h = inputs  # (B,S,D) precomputed frontend embeddings
     else:
-        h = params["embed"][inputs.long()]
+        # on DTensors each device looks up its own batch rows in the whole
+        # table (DTensor's rules for a lookup in a sharded table differ
+        # between releases, forward and backward)
+        h = on_shards(_lookup, (inputs, params["embed"]),
+                      dims=((0, None), (None, None)), out_dims=(0, None))
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)
@@ -237,7 +251,7 @@ def _lm_head(params, cfg: ModelConfig, h):
         c = cfg.final_logit_softcap
         logits = (c * torch.tanh(logits.to(torch.float32) / c)
                   ).to(logits.dtype)
-    return logits
+    return constrain(logits, "logits")
 
 
 def positions_for(B: int, S: int, device) -> torch.Tensor:
@@ -253,7 +267,7 @@ def forward(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
     MoE load-balance loss summed over the layers (0 without MoE).
     ``remat`` checkpoints each group (``torch.utils.checkpoint``)."""
     B, S = inputs.shape[0], inputs.shape[1]
-    h = _embed(params, cfg, inputs)
+    h = constrain(_embed(params, cfg, inputs), "hidden")
     h, cache, aux = _groups_full(params["groups"], h, cfg,
                                  positions_for(B, S, h.device), want_cache,
                                  max_seq or S, remat)
@@ -270,7 +284,15 @@ def _xent_chunk(params, cfg: ModelConfig, hc, lc, mc):
     """(summed NLL, count) of one chunk's masked positions."""
     logits = _lm_head(params, cfg, hc).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, lc[..., None].long(), dim=-1)[..., 0]
+    if isinstance(logits, DTensor):
+        # the vocab axis may be sharded: a masked sum (exact, one nonzero
+        # term a row), which DTensor reduces across the shards
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(vocab == lc[..., None], logits, 0.0),
+                         dim=-1)
+    else:
+        gold = torch.take_along_dim(logits, lc[..., None].long(),
+                                    dim=-1)[..., 0]
     tot = torch.sum(torch.where(mc, lse - gold, 0.0))
     return tot, torch.sum(mc.to(torch.float32))
 
@@ -279,14 +301,18 @@ def _chunked_xent(params, cfg: ModelConfig, h, labels, mask):
     """h: (B,S,D); labels/mask: (B,S).  Mean NLL over masked positions.
     The sequence is padded to a multiple of the chunk and taken one
     checkpointed chunk at a time, so one chunk's logits exist at once, in
-    the forward and in the backward pass."""
+    the forward and in the backward pass.  A sequence of one chunk is not
+    checkpointed: its logits are all there is, and recomputing them would
+    do a head product that the reference's compiled step does not (XLA
+    inlines the one-trip loop and shares the product with the forward)."""
     B, S, D = h.shape
     C = min(LOSS_CHUNK, S)
+    if S == C:
+        tot, cnt = _xent_chunk(params, cfg, h, labels, mask)
+        return tot / torch.clamp(cnt, min=1.0)
     if S % C:
         pad = C - S % C
-        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
+        h, labels, mask = (L.pad_seq(t, pad) for t in (h, labels, mask))
         S += pad
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -346,6 +372,7 @@ def decode_step(params, cfg: ModelConfig, cache, inputs, pos: int):
         gp, gc = group_slice(groups, g), group_slice(cache, g)
         for i, spec in enumerate(cfg.pattern):
             h, c = _block_decode(gp[i], h, gc[i], pos, cfg, spec)
+            h = constrain(h, "hidden")
             new[i].append(c)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _lm_head(params, cfg, h[:, 0]), tuple(_stack(c) for c in new)

@@ -9,12 +9,15 @@ equivalence with the sequential recurrence.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import pad_seq
+from repro_torch.models.shardctx import constrain, on_shards, reshape
 
 SSM_GROUPS = 1  # n_groups for the B/C projections
 
@@ -68,7 +71,7 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype, device,
 def _causal_conv(xc, w, b):
     """Depthwise causal conv.  xc: (B,S,Dc); w: (K,Dc)."""
     K, S = w.shape[0], xc.shape[1]
-    pad = F.pad(xc, (0, 0, K - 1, 0))
+    pad = pad_seq(xc, K - 1, front=True)
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(K))
     return F.silu(out + b)
 
@@ -120,22 +123,29 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
     Bh = torch.repeat_interleave(Bm, rep, dim=2)  # (B,S,H,N)
     Ch = torch.repeat_interleave(Cm, rep, dim=2)
 
-    def r(t):
-        return t.reshape((Bsz, nc, Q) + tuple(t.shape[2:]))
+    # the reference shards the chunk axis nc of every intra-chunk tensor
+    # over "model" here (launch.sharding.activation_specs); the port runs
+    # the scan on each device's rows and heads instead (mamba_forward), so
+    # these constraints meet local tensors and leave them as they are
+    def r(t, name):
+        return constrain(t.reshape((Bsz, nc, Q) + tuple(t.shape[2:])), name)
 
-    xc, dtc, Bc, Cc = r(x), r(dt), r(Bh), r(Ch)
+    xc, dtc = r(x, "ssm_chunk_x"), r(dt, "ssm_chunk_dt")
+    Bc, Cc = r(Bh, "ssm_chunk_bc"), r(Ch, "ssm_chunk_bc")
     dA = dtc * A  # (B,nc,Q,H)
     cum = torch.cumsum(dA, dim=2)
     xdt = xc * dtc[..., None]
 
     # intra-chunk (diagonal blocks)
-    L = _segsum_decay(cum)  # (B,nc,H,Q,Q)
-    CB = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
-    Yd = torch.einsum("bchij,bcjhp->bcihp", CB * L, xdt)
+    L = constrain(_segsum_decay(cum), "ssm_chunk_l")  # (B,nc,H,Q,Q)
+    CB = constrain(torch.einsum("bcihn,bcjhn->bchij", Cc, Bc), "ssm_chunk_l")
+    Yd = constrain(torch.einsum("bchij,bcjhp->bcihp", CB * L, xdt),
+                   "ssm_chunk_x")
 
     # per-chunk state contributions
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
-    Sc = torch.einsum("bcjhn,bcjhp->bchpn", Bc, xdt * decay_out[..., None])
+    Sc = constrain(torch.einsum("bcjhn,bcjhp->bchpn", Bc,
+                                xdt * decay_out[..., None]), "ssm_chunk_s")
 
     # inter-chunk recurrence: the final state and the state entering each
     # chunk
@@ -148,8 +158,9 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
         h = h * chunk_decay[:, c, :, None, None] + Sc[:, c]
     h_in = torch.stack(h_in, dim=1)  # (B,nc,H,P,N)
 
-    Yo = torch.einsum("bcihn,bchpn->bcihp", Cc * torch.exp(cum)[..., None],
-                      h_in)
+    Yo = constrain(torch.einsum("bcihn,bchpn->bcihp",
+                                Cc * torch.exp(cum)[..., None], h_in),
+                   "ssm_chunk_x")
     y = (Yd + Yo).reshape(Bsz, S, H, P)[:, :S_real]
     return y, h
 
@@ -159,25 +170,32 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
     """Full-sequence mamba2 block.  x: (B,S,D)."""
     Bsz, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z = x @ params["in_z"]
-    xr = x @ params["in_x"]
+    z = constrain(x @ params["in_z"], "ssm_inner")
+    xr = constrain(x @ params["in_x"], "ssm_inner")
     Br = x @ params["in_B"]
     Cr = x @ params["in_C"]
     dt = x @ params["in_dt"]
-    xs = _causal_conv(xr, params["conv_x"], params["conv_bx"])
+    xs = constrain(_causal_conv(xr, params["conv_x"], params["conv_bx"]),
+                   "ssm_inner")
     Bm = _causal_conv(Br, params["conv_B"], params["conv_bB"])
     Cm = _causal_conv(Cr, params["conv_C"], params["conv_bC"])
-    xs = xs.reshape(Bsz, S, H, P)
-    Bm = Bm.reshape(Bsz, S, SSM_GROUPS, N)
-    Cm = Cm.reshape(Bsz, S, SSM_GROUPS, N)
+    xs = constrain(reshape(xs, Bsz, S, H, P), "ssm_heads")
+    Bm = reshape(Bm, Bsz, S, SSM_GROUPS, N)
+    Cm = reshape(Cm, Bsz, S, SSM_GROUPS, N)
     A = -torch.exp(params["A_log"])
     # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x itself above
     # its threshold of 20, where log1p(exp(-x)) < 2.1e-9 is below half an
     # fp32 ulp of x, so the two agree in fp32
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
-    y, hT = ssd_chunked(cfg, xs, dt.to(xs.dtype), A.to(xs.dtype), Bm, Cm, h0)
+    # on DTensors the scan runs on each device's batch rows and heads (the
+    # B/C streams are shared by the heads)
+    y, hT = on_shards(functools.partial(ssd_chunked, cfg),
+                      (xs, dt.to(xs.dtype), A.to(xs.dtype), Bm, Cm, h0),
+                      dims=((0, 2), (0, 2), (None, 0), (0, None), (0, None),
+                            (0, 1)),
+                      out_dims=((0, 2), (0, 1)))
     y = y + params["D"].to(y.dtype)[:, None] * xs
-    y = y.reshape(Bsz, S, -1)
+    y = constrain(y.reshape(Bsz, S, -1), "ssm_inner")
     out = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps) \
         @ params["out_proj"]
     if return_cache:
@@ -196,7 +214,7 @@ def _left_pad_tail(xc, n):
     S = xc.shape[1]
     if S >= n:
         return xc[:, -n:]
-    return F.pad(xc, (0, 0, n - S, 0))
+    return pad_seq(xc, n - S, front=True)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -217,9 +235,30 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
     }
 
 
+def _decode_conv(hist_prev, cur, w, b):
+    """One step of a causal conv stream: (output, new history)."""
+    hist = torch.cat([hist_prev, cur[:, None]], dim=1)  # (B,K,·)
+    return F.silu(torch.einsum("bkd,kd->bd", hist, w) + b), hist[:, 1:]
+
+
+def _decode_state(xs, Bm, Cm, dt, A, Dp, state):
+    """The O(1) state update of one token: (y (B,H,P), state (B,H,P,N));
+    the B/C streams (B,G,N) are shared by the heads of a group."""
+    H = xs.shape[1]
+    Bm = torch.repeat_interleave(Bm, H // Bm.shape[1], dim=1)
+    Cm = torch.repeat_interleave(Cm, H // Cm.shape[1], dim=1)
+    dA = torch.exp(dt * A).to(xs.dtype)  # (B,H)
+    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt.to(xs.dtype), Bm, xs)
+    h = state * dA[..., None, None] + dBx
+    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + Dp.to(xs.dtype)[:, None] * xs
+    return y, h
+
+
 def mamba_decode(params, x, cache, cfg: ModelConfig):
     """One-token decode.  x: (B,1,D).  O(1) state update.  Returns the
-    output and a new cache; ``cache`` itself is not changed."""
+    output and a new cache; ``cache`` itself is not changed.  On DTensors
+    the convs and the update run on each device's batch rows and
+    channels or heads."""
     Bsz = x.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     x0 = x[:, 0]
@@ -229,29 +268,26 @@ def mamba_decode(params, x, cache, cfg: ModelConfig):
     Cr = x0 @ params["in_C"]
     dt = x0 @ params["in_dt"]
 
-    def dconv(hist_prev, cur, w, b):
-        hist = torch.cat([hist_prev, cur[:, None]], dim=1)  # (B,K,·)
-        return F.silu(torch.einsum("bkd,kd->bd", hist, w) + b), hist[:, 1:]
+    def dconv(stream, cur):
+        return on_shards(_decode_conv, (cache["conv"][stream], cur,
+                                        params[f"conv_{stream}"],
+                                        params[f"conv_b{stream}"]),
+                         dims=((0, 2), (0, 1), (None, 1), (None, 0)),
+                         out_dims=((0, 1), (0, 2)))
 
-    xs, cx = dconv(cache["conv"]["x"], xr, params["conv_x"],
-                   params["conv_bx"])
-    Bm, cB = dconv(cache["conv"]["B"], Br, params["conv_B"],
-                   params["conv_bB"])
-    Cm, cC = dconv(cache["conv"]["C"], Cr, params["conv_C"],
-                   params["conv_bC"])
-    xs = xs.reshape(Bsz, H, P)
-    Bm = torch.repeat_interleave(Bm.reshape(Bsz, SSM_GROUPS, N),
-                                 H // SSM_GROUPS, dim=1)
-    Cm = torch.repeat_interleave(Cm.reshape(Bsz, SSM_GROUPS, N),
-                                 H // SSM_GROUPS, dim=1)
+    xs, cx = dconv("x", xr)
+    Bm, cB = dconv("B", Br)
+    Cm, cC = dconv("C", Cr)
     A = -torch.exp(params["A_log"])
     # F.softplus == jax.nn.softplus in fp32 (see mamba_forward)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])  # (B,H)
-    dA = torch.exp(dt * A).to(xs.dtype)  # (B,H)
-    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt.to(xs.dtype), Bm, xs)
-    h = cache["state"] * dA[..., None, None] + dBx
-    y = torch.einsum("bhn,bhpn->bhp", Cm, h) \
-        + params["D"].to(xs.dtype)[:, None] * xs
+    y, h = on_shards(_decode_state,
+                     (reshape(xs, Bsz, H, P), reshape(Bm, Bsz, SSM_GROUPS, N),
+                      reshape(Cm, Bsz, SSM_GROUPS, N), dt, A, params["D"],
+                      cache["state"]),
+                     dims=((0, 1), (0, None), (0, None), (0, 1), (None, 0),
+                           (None, 0), (0, 1)),
+                     out_dims=((0, 1), (0, 1)))
     y = y.reshape(Bsz, -1)
     out = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps) \
         @ params["out_proj"]

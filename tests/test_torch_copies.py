@@ -186,7 +186,11 @@ def test_every_port_module_imports_with_jax_blocked():
         ".__init__") for rel in COPIES} <= set(mods)
     assert {"repro_torch.core.quant", "repro_torch.training.optim",
             "repro_torch.launch.steps", "repro_torch.launch.train",
-            "repro_torch.checkpoint", "repro_torch.checkpoint.io"} <= set(mods)
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io",
+            "repro_torch.models.shardctx", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.hlo_cost",
+            "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             "import importlib\n"

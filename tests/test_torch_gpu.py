@@ -640,3 +640,107 @@ def test_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
     for a, w in zip(tree_leaves(back), tree_leaves(tree)):
         assert a.device == w.device and a.dtype == w.dtype
         assert torch.equal(a, w)
+
+
+# ------------------------------------- the launch tooling on the card
+@pytest.fixture(scope="module")
+def card_mesh():
+    """The 1x1 ("data", "model") mesh on the card (a one-rank group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh("cuda")
+
+
+def _on_card_mesh(mesh, cfg, params, serving, fn, B):
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.sharding import (activation_specs, distribute,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
+    with activation_sharding(activation_specs(cfg, mesh, B)), \
+            implicit_replication():
+        return fn(distribute(params, shard_params(params, mesh, cfg,
+                                                  serving=serving)))
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@pytest.mark.parametrize("serving", [True, False])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
+                                  "mixtral-8x7b"])
+def test_card_mesh_forward_matches_plain(cuda, card_mesh, arch, serving):
+    """The reduced forward with DTensor parameters on the 1x1 card mesh,
+    hooks live, in the serving and the FSDP layout: logits within 1e-6
+    (max|d| / max|ref|) of the plain tensors' (one device runs the same
+    local ops; the MoE product runs expert-major there)."""
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute)
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)).to(cuda)
+
+    def logits(p, x):
+        h, _, _ = M.forward(p, cfg, x)
+        return _full(M._lm_head(p, cfg, h))
+
+    with torch.no_grad():
+        want = logits(params, toks)
+        got = _on_card_mesh(card_mesh, cfg, params, serving, lambda p: logits(
+            p, distribute(toks, NamedSharding(card_mesh, batch_spec(
+                card_mesh, 4, 1)))), 4)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
+                                  "mixtral-8x7b"])
+def test_card_mesh_train_step_matches_plain(cuda, card_mesh, arch):
+    """A train step's loss and gradients with DTensor parameters in the
+    FSDP layout on the 1x1 card mesh: loss within 1e-6 relative and each
+    gradient leaf within 1e-6 relative L2 of the plain tensors'."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute)
+    from repro_torch.training.optim import tree_leaves
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(cuda)
+    b = {"tokens": toks, "labels": toks}
+    loss, _, grads = ST.loss_and_grads(params, cfg, b)
+    shard = NamedSharding(card_mesh, batch_spec(card_mesh, 2, 1))
+    dloss, _, dgrads = _on_card_mesh(
+        card_mesh, cfg, params, False, lambda p: ST.loss_and_grads(
+            p, cfg, distribute(b, {k: shard for k in b})), 2)
+    assert float(_full(dloss)) == pytest.approx(float(loss), rel=1e-6)
+    for g, w in zip(tree_leaves(dgrads), tree_leaves(grads)):
+        err = float(torch.linalg.vector_norm(_full(g) - w))
+        assert err <= 1e-6 * float(torch.linalg.vector_norm(w)) + 1e-12
+
+
+def test_dryrun_on_a_cuda_mesh(cuda):
+    """``launch.dryrun`` with a CUDA mesh (this host has CUDA) on a fake
+    2x2 group, in a subprocess: a decode and a train pair finish with
+    positive flops and finite collective bytes of every kind."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    script = (
+        "import json\n"
+        "from repro_torch.launch import dryrun as D\n"
+        "D.init_fake_group(4)\n"
+        "print(json.dumps([D.lower_pair(a, s, False)[1] for a, s in "
+        "[('gemma2-2b', 'decode_32k'), ('mamba2-130m', 'train_4k')]]))\n")
+    env = dict(os.environ, REPRO_MESH_SHAPE="2,2", REPRO_MICROBATCHES="1",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    r = subprocess.run([sys.executable, "-c", script], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for rep in json.loads(r.stdout.strip().splitlines()[-1]):
+        assert rep["cost"]["flops_per_dev"] > 0
+        assert all(math.isfinite(v) for v in rep["collectives"].values())
