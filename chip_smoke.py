@@ -76,6 +76,11 @@ Phases (any failure exits non-zero before the last line):
      within 1e-6; (b) in a subprocess, the dry-run of gemma2-2b train_4k
      and mixtral-8x7b decode_32k on the 16x16 mesh of a fake 256-rank
      group: per device flops, HBM and collective bytes, roofline terms;
+     (c) beside (b), in a subprocess, ``tools/dtensor_probe.py``: the
+     reduced train steps of jamba, llama4, mamba2, mixtral and qwen3 (B,
+     S = 4, 32, two microbatches of 2 rows, which do not divide the
+     4-way data axis) on meta DTensors over the 4x4 CUDA mesh of a fake
+     16-rank group, hooks live: each step runs;
   then print each phase's numbers, the card's name and power limit, the
   kernels' JSON line (launches summed over phases 4-7's, 9's and 10's
   main-path runs), and the contract line.
@@ -1459,6 +1464,41 @@ def dryrun_check():
     return out
 
 
+# phase 12 (c): the reduced train steps on a fake 4x4 mesh
+PROBE_ARCHS = ["jamba-1.5-large-398b", "llama4-scout-17b-a16e",
+               "mamba2-130m", "mixtral-8x7b", "qwen3-14b"]
+
+
+def probe_start():
+    """``tools/dtensor_probe.py 4,4`` on PROBE_ARCHS' train steps, started
+    in a subprocess of its own."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "dtensor_probe.py"),
+         "4,4", ",".join(PROBE_ARCHS), "--jobs", "train"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def probe_check(proc):
+    """Waits for ``probe_start``'s probe: every step must run.  Returns
+    {arch: seconds of its step}."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = {}
+    for line in out.splitlines():
+        if line.startswith(("ok ", "FAIL ", "torch ")):
+            log(f"  {line[:300]}")
+        if line.startswith("ok "):
+            secs[line.split()[1]] = float(line.split()[-1].rstrip("s"))
+    assert proc.returncode == 0 and list(secs) == PROBE_ARCHS, \
+        f"the 4x4 probe failed: {out[-2000:]} {err[-2000:]}"
+    return secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1656,11 +1696,21 @@ def main() -> int:
     lrel, gworst = dtensor_train_check(torch, M, mesh)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
-    log(" (b) the dry-run on the 16x16 mesh (a subprocess)")
+    log(" (b) the dry-run on the 16x16 mesh and (c) the reduced train "
+        "steps on a fake 4x4 mesh (two subprocesses side by side)")
+    probe = probe_start()
+    try:
+        dryrun = dryrun_check()
+    except BaseException:
+        probe.kill()
+        probe.wait()
+        raise
+    probe_secs = probe_check(probe)
     results["dtensor"] = {
         "serve_max_abs_diff": worst, "decode_ms_plain": ms_plain,
         "decode_ms_dtensor": ms_dt, "train_loss_rel": lrel,
-        "train_worst_grad_rel_l2": gworst, "dryrun": dryrun_check()}
+        "train_worst_grad_rel_l2": gworst, "dryrun": dryrun,
+        "train_4x4_s": probe_secs}
     log(f"phase 12 in {time.time() - t12:.1f}s (budget 60 s)")
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \

@@ -18,7 +18,7 @@ time of the recorded step) and XLA's own uncorrected cost counters
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--multi-pod] [--out DIR]
+  python -m repro_torch.launch.dryrun --all [--arch A] [--multi-pod] [--out DIR]
 """
 
 from __future__ import annotations
@@ -160,8 +160,9 @@ def main():
 
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
-    if args.all:
-        pairs = [(a, s) for a in ARCHS for s in SHAPES]
+    if args.all:  # with --arch: every shape of that arch
+        pairs = [(a, s) for a in ARCHS for s in SHAPES
+                 if args.arch in (None, a)]
     else:
         assert args.arch and args.shape, "--arch/--shape or --all"
         pairs = [(args.arch, args.shape)]

@@ -25,7 +25,8 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.shardctx import constrain, on_shards
+from repro_torch.models.shardctx import (constrain, grad_in_layout,
+                                         on_shards)
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype, device,
@@ -138,7 +139,7 @@ def moe_ffn(params, x, cfg: ModelConfig):
     k, E = cfg.experts_per_token, cfg.num_experts
     cap = capacity(T, cfg)
 
-    logits = x.to(torch.float32) @ params["router"]  # (G,T,E)
+    logits = grad_in_layout(x.to(torch.float32) @ params["router"])  # (G,T,E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k puts the lower index first on ties; a stable
     # descending sort does the same (torch.topk promises no order), so

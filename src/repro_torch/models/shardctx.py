@@ -21,6 +21,17 @@ of the batch).  DTensor cannot split a dim sharded n ways into dims whose
 first is not a multiple of n, where XLA would reshard; so such a dim is
 gathered first.
 
+``grad_in_layout(x)`` is ``x``, but the gradient that reaches it in the
+backward pass is redistributed to ``x``'s own placements (a partial sum to
+a replica).  Sharding propagation of the backward ops may leave a
+gradient sharded on a dim that the forward never sharded; torch 2.11's
+DTensor does so on the sequence dim (behind the MoE router's and the
+Mamba2 ``dt`` products, and qwen3's key heads), and then refuses the
+backward of the view that made ``x`` (a reshape's, or the one inside a
+3-D by 2-D matmul) because it would flatten that dim.  In the forward
+layout that backward view is the forward one reversed.  ``reshape``
+applies it to what it returns.
+
 ``on_shards(fn, args, dims, out_dims)`` runs the parts of a layer that
 are independent across batch rows and heads (attention's scores and
 softmax, the SSD scan, the Mamba2 decode update, the MoE dispatch) on
@@ -97,6 +108,29 @@ def _uneven_splits(old, new, counts) -> set:
     return bad
 
 
+class _GradInLayout(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_in_layout(x):
+    if not (isinstance(x, DTensor) and x.requires_grad
+            and torch.is_grad_enabled()):
+        return x
+    return _GradInLayout.apply(x)
+
+
 def reshape(x, *shape):
     if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
         shape = tuple(shape[0])
@@ -115,7 +149,7 @@ def reshape(x, *shape):
         x = x.redistribute(mesh, [
             Replicate() if isinstance(p, Shard) and p.dim in bad else p
             for p in x.placements])
-    return x.reshape(shape)
+    return grad_in_layout(x.reshape(shape))
 
 
 def on_shards(fn, args, dims, out_dims):

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import pad_seq
-from repro_torch.models.shardctx import constrain, on_shards, reshape
+from repro_torch.models.shardctx import (constrain, grad_in_layout,
+                                         on_shards, reshape)
 
 SSM_GROUPS = 1  # n_groups for the B/C projections
 
@@ -174,7 +175,7 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
     xr = constrain(x @ params["in_x"], "ssm_inner")
     Br = x @ params["in_B"]
     Cr = x @ params["in_C"]
-    dt = x @ params["in_dt"]
+    dt = grad_in_layout(x @ params["in_dt"])
     xs = constrain(_causal_conv(xr, params["conv_x"], params["conv_bx"]),
                    "ssm_inner")
     Bm = _causal_conv(Br, params["conv_B"], params["conv_bB"])

@@ -64,6 +64,54 @@ def test_copy_is_the_reference_with_imports_renamed(rel):
     assert (PORT / rel).read_text() == want
 
 
+# The port's twins of the reference tests of the copied modules: each is
+# the reference test with the package and the test modules it imports
+# renamed.  The one reference test that reaches the reference's benchmark
+# harness gets a renamed copy of it; the one test that runs the JAX model
+# is left out (its twin is in test_torch_async.py).  A twin imports a
+# twin as a top-level module (pytest puts tests/ on the path), not as
+# ``tests.X`` as the reference does: where an installed package is also
+# named ``tests``, a directory without ``__init__.py`` loses to it.
+TESTS = SRC.parent / "tests"
+TWINS = ["sim", "partitioner", "plan_fast", "online", "engine", "pipeline",
+         "hop_exit", "obs", "obs_props", "pools", "pool_props", "tenancy",
+         "batching", "baselines", "scenarios", "async_engine"]
+LEFT_OUT = {"async_engine":
+            "test_segment_handles_execute_real_model_through_workers"}
+TWIN_FILES = [(f"tests/test_{n}.py", f"tests/test_torch_twin_{n}.py")
+              for n in TWINS] + [("benchmarks/common.py",
+                                  "tests/torch_twin_bench_common.py")]
+
+
+def _twin_renamed(text):
+    text = re.sub(r"\btests\.test_(\w+)", r"test_torch_twin_\1",
+                  _renamed(text))
+    return text.replace("benchmarks.common", "torch_twin_bench_common")
+
+
+def _without_function(text, name):
+    node = next(f for f in ast.parse(text).body
+                if isinstance(f, ast.FunctionDef) and f.name == name)
+    first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+    lines = text.splitlines(keepends=True)
+    return "".join(lines[:first - 1] + lines[node.end_lineno:])
+
+
+@pytest.mark.parametrize("ref,twin", TWIN_FILES)
+def test_twin_is_the_reference_test_with_imports_renamed(ref, twin):
+    text = (SRC.parent / ref).read_text()
+    name = Path(ref).stem.removeprefix("test_")
+    if name in LEFT_OUT:
+        text = _without_function(text, LEFT_OUT[name])
+        assert LEFT_OUT[name] not in text
+    assert (SRC.parent / twin).read_text() == _twin_renamed(text)
+
+
+def test_every_reference_test_of_a_copy_has_its_twin():
+    want = {f"test_torch_twin_{n}.py" for n in TWINS}
+    assert {f.name for f in TESTS.glob("test_torch_twin_*.py")} == want
+
+
 @pytest.mark.parametrize("arch", sorted(JC.ARCHS))
 def test_configs_equal_field_for_field(arch):
     for j, t in ((JC.get_config(arch), TC.get_config(arch)),
@@ -161,21 +209,46 @@ def _port_modules():
         repro_torch.__path__, "repro_torch."))
 
 
+def _imports(f):
+    for node in ast.walk(ast.parse(f.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_twin_imports_jax_the_jax_package_or_a_reference_test():
+    files = [SRC.parent / twin for _, twin in TWIN_FILES]
+    for f in files:
+        for n in _imports(f):
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "flax",
+                               "benchmarks", "tests"), f"{f.name} imports {n}"
+            assert not top.startswith("test_") or top.startswith(
+                "test_torch_twin_"), f"{f.name} imports {n}"
+    mods = [f.stem for f in files]
+    code = ("import sys\n"
+            "for m in ('jax', 'repro', 'benchmarks'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) "
+            "for k in sys.modules if sys.modules[k] is not None)\n"
+            "print('IMPORTED', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{TESTS}")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=TESTS,
+                       capture_output=True, text=True, timeout=120)
+    assert "IMPORTED" in r.stdout, r.stdout + r.stderr
+
+
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 40
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            for n in names:
-                top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro", "flax"), \
-                    f"{f.relative_to(SRC)} imports {n}"
+        for n in _imports(f):
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "flax"), \
+                f"{f.relative_to(SRC)} imports {n}"
 
 
 def test_every_port_module_imports_with_jax_blocked():

@@ -222,6 +222,32 @@ def test_dryrun_pairs_on_a_fake_2x2_mesh():
         assert 0 < frac < 1.5, (arch, sname, frac)
 
 
+# ------------------------------------- reduced train steps, fake 4x4 mesh
+PROBE = os.path.join(os.path.dirname(__file__), "..", "tools",
+                     "dtensor_probe.py")
+PROBE_ARCHS = ["jamba-1.5-large-398b", "llama4-scout-17b-a16e",
+               "mamba2-130m", "mixtral-8x7b", "qwen3-14b"]
+
+
+def test_reduced_train_steps_on_a_fake_4x4_mesh():
+    """The reduced train steps of the archs torch 2.11's DTensor refused on
+    a 4x4 mesh (B, S = 4, 32: a microbatch of 2 rows does not divide the
+    4-way data axis) on meta DTensors over a fake 4x4 CPU mesh, hooks live
+    (``tools/dtensor_probe.py``, two subprocesses side by side: jamba's
+    step takes about as long as the other four): every step runs."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, PROBE, "4,4", ",".join(archs),
+                               "--jobs", "train"], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for archs in (PROBE_ARCHS[:1], PROBE_ARCHS[1:])]
+    outs = [p.communicate(timeout=300) for p in procs]
+    ok = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and "0 failed" in out, out + err[-3000:]
+        ok += [l.split()[1] for l in out.splitlines() if l.startswith("ok ")]
+    assert ok == PROBE_ARCHS
+
+
 # --------------------------------------------- four gloo ranks, 2x2 mesh
 _RANK_SCRIPT = r"""
 import sys

@@ -744,3 +744,37 @@ def test_dryrun_on_a_cuda_mesh(cuda):
     for rep in json.loads(r.stdout.strip().splitlines()[-1]):
         assert rep["cost"]["flops_per_dev"] > 0
         assert all(math.isfinite(v) for v in rep["collectives"].values())
+
+
+# the reduced archs whose train steps torch 2.11's DTensor refused on a 4x4
+# mesh until the port redistributed their gradients (a microbatch of 2
+# rows does not divide the 4-way data axis)
+PROBE_ARCHS = ["jamba-1.5-large-398b", "llama4-scout-17b-a16e",
+               "mamba2-130m", "mixtral-8x7b", "qwen3-14b"]
+
+
+@pytest.fixture(scope="module")
+def probe_4x4():
+    """``tools/dtensor_probe.py 4,4 ... --jobs train`` on this host (a CUDA
+    mesh of a fake 16-rank group, in a subprocess): its stdout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    r = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                     "dtensor_probe.py"),
+                        "4,4", ",".join(PROBE_ARCHS), "--jobs", "train"],
+                       capture_output=True, text=True, timeout=600)
+    assert "mesh DeviceMesh((data=4, model=4), 'cuda'" in r.stdout, \
+        r.stdout + r.stderr[-3000:]
+    return r.stdout
+
+
+@pytest.mark.parametrize("arch", PROBE_ARCHS)
+def test_reduced_train_step_on_a_fake_4x4_cuda_mesh(cuda, probe_4x4, arch):
+    """The reduced train step (B, S = 4, 32, two microbatches) on meta
+    DTensors over a fake 4x4 CUDA mesh, the hooks live, runs."""
+    lines = [l for l in probe_4x4.splitlines() if f" {arch} train" in l]
+    assert len(lines) == 1 and lines[0].startswith("ok "), probe_4x4

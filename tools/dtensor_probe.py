@@ -6,12 +6,19 @@ microbatches), prefill and decode run once on meta DTensors over a fake
 process group laid out as a DATA x MODEL mesh, with the activation hooks
 live.  Each line says ok or FAIL, and a failure names the exception, the
 last port source line it passed through and the last DTensor op
-dispatched.  Nothing is allocated, so any mesh size runs on any host;
-the mesh is a CUDA mesh where CUDA is available.
+dispatched.  With ``--heal`` every op DTensor refuses is logged (op,
+shapes, placements, and for a backward op the autograd node and the port
+lines of its forward, from anomaly mode) and run again on replicated
+arguments, so one run finds every refusal of a step.  Nothing is
+allocated, so any mesh size runs on any host; the mesh is a CUDA mesh
+where CUDA is available.
 
-  python3 tools/dtensor_probe.py 2,2 [arch,arch,...]
+  python3 tools/dtensor_probe.py 2,2 [arch,arch,...] [--jobs train,decode]
+                                 [--heal]
 """
 
+import argparse
+import collections
 import os
 import sys
 import time
@@ -23,7 +30,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
-from torch.distributed.tensor import DTensor  # noqa: E402
+from torch.distributed.tensor import DTensor, Replicate  # noqa: E402
 from torch.distributed.tensor.experimental import \
     implicit_replication  # noqa: E402
 from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: E402
@@ -53,6 +60,49 @@ class LastOp(TorchDispatchMode):
                                      if isinstance(a, DTensor)])
             return NotImplemented
         return func(*args, **(kwargs or {}))
+
+
+def _port_frames(lines):
+    """file:line of the port's frames in formatted stack ``lines``."""
+    out = []
+    for line in "".join(lines).splitlines():
+        line = line.strip()
+        if line.startswith("File") and "repro_torch" in line:
+            path, lineno = line.split('"')[1], line.split("line ")[1]
+            out.append(f"{path[path.index('repro_torch'):]}:"
+                       f"{lineno.split(',')[0]}")
+    return out
+
+
+class Heal(TorchDispatchMode):
+    """Logs each DTensor op that fails and runs it again on replicated
+    arguments."""
+    refusals = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        try:
+            return func(*args, **kwargs)
+        except Exception as e:
+            if not any(isinstance(a, DTensor) for a in args):
+                raise
+            node = torch._C._current_autograd_node()
+            stack = (node.metadata.get("traceback_", []) if node is not None
+                     else traceback.format_stack())
+            where = _port_frames(stack if isinstance(stack, list)
+                                 else [stack])[-2:]
+            Heal.refusals.append((
+                str(func), str([(tuple(a.shape), tuple(a.placements))
+                                if isinstance(a, DTensor) else a
+                                for a in args if isinstance(a, DTensor)
+                                or not isinstance(a, torch.Tensor)]),
+                node.name() if node is not None else "forward",
+                " <- ".join(reversed(where)),
+                str(e).strip().splitlines()[0][:120] if str(e) else ""))
+            return func(*[a.redistribute(a.device_mesh, [Replicate()]
+                                         * a.device_mesh.ndim)
+                          if isinstance(a, DTensor) else a for a in args],
+                        **kwargs)
 
 
 def jobs(cfg, mesh):
@@ -103,24 +153,49 @@ def jobs(cfg, mesh):
 
 
 def main():
-    shape = tuple(int(v) for v in sys.argv[1].split(","))
-    archs = sys.argv[2].split(",") if len(sys.argv) > 2 else sorted(ARCHS)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("mesh", help="DATA,MODEL, e.g. 4,4")
+    ap.add_argument("archs", nargs="?", default=",".join(sorted(ARCHS)))
+    ap.add_argument("--jobs", default=None,
+                    help="only these steps, e.g. train (default: all)")
+    ap.add_argument("--heal", action="store_true",
+                    help="log every refused op and go on past it")
+    args = ap.parse_args()
+    shape = tuple(int(v) for v in args.mesh.split(","))
+    archs = args.archs.split(",")
+    only = args.jobs.split(",") if args.jobs else None
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=shape[0] * shape[1])
     mesh = init_device_mesh("cuda" if torch.cuda.is_available() else "cpu",
                             shape, mesh_dim_names=("data", "model"))
     print(f"torch {torch.__version__}, mesh {mesh}", flush=True)
+    if args.heal:  # the forward traceback of each backward node
+        torch.autograd.set_detect_anomaly(True, check_nan=False)
     fails = 0
     for arch in archs:
         cfg = get_config(arch).reduced()
         for name, fn in jobs(cfg, mesh):
+            if only is not None and name not in only:
+                continue
             t0 = time.time()
+            Heal.refusals = []
             try:
                 with activation_sharding(activation_specs(cfg, mesh, B)), \
-                        implicit_replication(), LastOp():
+                        implicit_replication(), \
+                        Heal() if args.heal else LastOp():
                     fn()
-                print(f"ok   {arch} {name} {time.time() - t0:.1f}s",
-                      flush=True)
+                if Heal.refusals:
+                    fails += 1
+                    print(f"FAIL {arch} {name}: {len(Heal.refusals)} ops "
+                          f"refused (each run again on replicated "
+                          f"arguments):", flush=True)
+                    for r, n in collections.Counter(Heal.refusals).items():
+                        print(f"       x{n} {r[0]} {r[1]} in {r[2]}, "
+                              f"forward at {r[3] or '?'}: {r[4]}",
+                              flush=True)
+                else:
+                    print(f"ok   {arch} {name} {time.time() - t0:.1f}s",
+                          flush=True)
             except Exception as e:  # report every step, then go on
                 fails += 1
                 lines = str(e).strip().splitlines() or [repr(e)]
