@@ -75,8 +75,10 @@ Phases (any failure exits non-zero before the last line):
      the 4-layer gemma2-2b in the FSDP layout: loss bit-equal, gradients
      within 1e-6; (b) in a subprocess, the dry-run of gemma2-2b train_4k
      and mixtral-8x7b decode_32k on the 16x16 mesh of a fake 256-rank
-     group: per device flops, HBM and collective bytes, roofline terms;
-     (c) beside (b), in a subprocess, ``tools/dtensor_probe.py``: the
+     group: per device flops, HBM and collective bytes, roofline terms,
+     and the flops, collective bytes and memory against the reference's
+     own dry-run of the same pairs (constants made where JAX is): at most
+     1.3x, 2x and 2x; (c) beside (b), in a subprocess, ``tools/dtensor_probe.py``: the
      reduced train steps of jamba, llama4, mamba2, mixtral and qwen3 (B,
      S = 4, 32, two microbatches of 2 rows, which do not divide the
      4-way data axis) on meta DTensors over the 4x4 CUDA mesh of a fake
@@ -1321,6 +1323,24 @@ def train_full_width(torch, M):
 # ------------------------------------------------------------ phase 12
 # the dry-run pairs of phase 12 (b), on the 16x16 mesh of a fake group
 DRYRUN_PAIRS = [["gemma2-2b", "train_4k"], ["mixtral-8x7b", "decode_32k"]]
+# The reference's own dry-run of DRYRUN_PAIRS on the 16x16 mesh, per
+# device: roofline flops, roofline collective bytes (both trip-count
+# aware) and total_nonalias_bytes of its compiled program.  The card's
+# machine has no JAX, so they are constants here, made with JAX 0.9.0
+# (XLA's CPU backend, 256 fake host devices, the mesh's axes made Auto) by
+#   python3 tools/dryrun_vs_reference.py gemma2-2b:train_4k \
+#       mixtral-8x7b:decode_32k --side ref --json FILE
+# (tests/test_torch_dryrun.py holds them to what the tool computes).
+REFERENCE_DRYRUN = {
+    "gemma2-2b train_4k": {"flops": 104838004211712.0,
+                           "coll_bytes": 224890224128.0,
+                           "memory_bytes": 4941252528.0},
+    "mixtral-8x7b decode_32k": {"flops": 228033822720.0,
+                                "coll_bytes": 211417640.0,
+                                "memory_bytes": 18676442948.0},
+}
+# the port's figure over the reference's, at most
+DRYRUN_TARGETS = {"flops": 1.3, "coll_bytes": 2.0, "memory_bytes": 2.0}
 _DRYRUN = r"""
 import json, sys
 from repro_torch.launch import dryrun as D
@@ -1348,8 +1368,8 @@ def dtensor_serve_check(torch, M, mesh):
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.sharding import (NamedSharding, activation_specs,
-                                             batch_spec, distribute,
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute, layout_specs,
                                              shard_params)
     from repro_torch.models.shardctx import activation_sharding
     cfg = get_config("gemma2-2b")
@@ -1376,7 +1396,7 @@ def dtensor_serve_check(torch, M, mesh):
 
     with torch.no_grad():
         want, ms_plain = run(params, lambda x: x)
-        with activation_sharding(activation_specs(cfg, mesh, B)), \
+        with activation_sharding(layout_specs(cfg, mesh, B)), \
                 implicit_replication():
             dp = distribute(params, shard_params(params, mesh, cfg,
                                                  serving=True))
@@ -1401,8 +1421,8 @@ def dtensor_train_check(torch, M, mesh):
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.sharding import (NamedSharding, activation_specs,
-                                             batch_spec, distribute,
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute, layout_specs,
                                              shard_params)
     from repro_torch.models.shardctx import activation_sharding
     from repro_torch.training.optim import tree_leaves
@@ -1413,7 +1433,7 @@ def dtensor_train_check(torch, M, mesh):
                          ).to("cuda")
     b = {"tokens": toks, "labels": toks}
     loss, _, grads = ST.loss_and_grads(params, cfg, b)
-    with activation_sharding(activation_specs(cfg, mesh, 2)), \
+    with activation_sharding(layout_specs(cfg, mesh, 2)), \
             implicit_replication():
         dp = distribute(params, shard_params(params, mesh, cfg))
         db = distribute(b, {k: NamedSharding(mesh, batch_spec(mesh, 2, 1))
@@ -1436,7 +1456,8 @@ def dryrun_check():
     """``launch.dryrun`` of DRYRUN_PAIRS on the 16x16 mesh of a fake
     256-rank group, in a subprocess of its own: per device the flops, HBM
     bytes, collective bytes by kind, the roofline terms and the trace
-    seconds."""
+    seconds; each pair's flops, collective bytes and memory held to
+    DRYRUN_TARGETS against REFERENCE_DRYRUN."""
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run([sys.executable, "-c", _DRYRUN,
                         json.dumps(DRYRUN_PAIRS)], env=env,
@@ -1458,9 +1479,18 @@ def dryrun_check():
             f"traced in {rep['trace_s']} s")
         assert roof["flops"] > 0 and roof["hbm_bytes"] > 0 and all(
             math.isfinite(v) for v in coll.values()), rep
+        got = {"flops": roof["flops"], "coll_bytes": roof["coll_bytes"],
+               "memory_bytes": rep["memory"]["total_nonalias_bytes"]}
+        ratio = {k: got[k] / REFERENCE_DRYRUN[pair][k] for k in got}
+        log(f"    against the reference's dry-run: " + ", ".join(
+            f"{k} {got[k]:.4g} / {REFERENCE_DRYRUN[pair][k]:.4g} = "
+            f"{ratio[k]:.3f}x (<= {DRYRUN_TARGETS[k]})" for k in got))
+        assert all(ratio[k] <= DRYRUN_TARGETS[k] for k in ratio), \
+            f"{pair} outside the targets against the reference: {ratio}"
         out[pair] = {k: rep[k] for k in ("trace_s", "memory", "cost",
                                          "collectives", "roofline",
                                          "useful_flop_frac")}
+        out[pair]["against_reference"] = ratio
     return out
 
 

@@ -9,7 +9,7 @@ ranks) stands in for the cluster: this process is rank 0, the
 collectives DTensor issues complete without sending anything, and the
 parameters, optimizer state, caches and inputs are meta DTensors laid
 out by ``launch.sharding``, so nothing is allocated.  The step runs once
-under ``activation_sharding(activation_specs(...))`` and
+under ``activation_sharding(layout_specs(...))`` and
 ``implicit_replication()`` and ``hlo_cost.trace_step`` records rank 0's
 local ops.  The report has the reference's keys, except that the
 reference's ``lower_s`` and ``compile_s`` become ``trace_s`` (the wall
@@ -39,9 +39,10 @@ from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import hlo_cost as HC
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_production_mesh, production_shape
-from repro_torch.launch.sharding import (NamedSharding, P, activation_specs,
-                                         batch_spec, distribute, shard_cache,
-                                         shard_params, serving_layout_fits)
+from repro_torch.launch.sharding import (NamedSharding, P, batch_spec,
+                                         distribute, layout_specs,
+                                         serving_layout_fits, shard_cache,
+                                         shard_params)
 from repro_torch.models.shardctx import activation_sharding
 from repro_torch.training.optim import AdamWConfig, AdamWState
 
@@ -91,7 +92,7 @@ def lower_pair(arch: str, shape_name: str, multi_pod: bool,
         return distribute(t, NamedSharding(mesh, batch_spec(mesh, B,
                                                             t.ndim - 1)))
 
-    with activation_sharding(activation_specs(cfg, mesh, B)), \
+    with activation_sharding(layout_specs(cfg, mesh, B)), \
             implicit_replication():
         if shape.kind == "train":
             # bf16 moments for the >100B configs (HBM budget), f32 otherwise

@@ -295,3 +295,54 @@ def activation_specs(cfg: ModelConfig, mesh, batch: int,
         "ssm_chunk_l": P(b, "model", None, None, None),
         "ssm_chunk_s": P(b, "model", None, None, None),
     }
+
+
+def product_specs(cfg: ModelConfig, mesh, batch: int, collab: bool = False):
+    """Specs of the operands of the models' products, by name.  The
+    reference has no such points: XLA propagates its activation specs
+    back into each product, and DTensor propagates forward, op by op, so
+    the port constrains the operands to the layouts the reference's
+    compiled HLO gives them.  ``...`` stands for the dims between (an
+    operand with or without a sequence dim).
+
+    A weight is whole on the data axes (the all-gather of FSDP) and
+    sharded on the model axis over its output dim, column-parallel
+    ("col_w", "expert_col_w"), or its input dim, row-parallel ("row_w",
+    "expert_row_w"), as ``param_spec`` orients it; a norm's scale is whole.
+    Data axes that carry no batch rows (a batch of one) split a product's
+    contraction ("col_in", "expert_in") or a row-parallel product's
+    output instead.  The head's weight is sharded on the vocab; where the
+    vocab does not divide the model axis, on d_model, and the head's input
+    ("head_in") with it, and the logits are whole ("head_out").  A prefill
+    leaves the decode cache's keys and values sharded on the sequence
+    ("kv_seq", as ``cache_spec``), and a decode step's new entry is whole
+    but for its rows ("kv_new")."""
+    data = ("pod", "data") if ("pod" in axis_names(mesh) and not collab) \
+        else ("data",)
+    b = activation_specs(cfg, mesh, batch, collab)["hidden"][0]
+    used = b if isinstance(b, tuple) else (b,)
+    idle = P(tuple(a for a in data if a not in used
+                   and _axis_size(mesh, a) > 1))[0]
+    vocab = _fit(cfg.vocab_size, mesh, "model")
+    return {
+        "norm_scale": P(None),
+        "col_in": P(b, ..., idle) if idle else None,
+        "col_w": P(idle, "model"),
+        "row_w": P("model", idle),
+        "expert_in": P(b, None, None, idle) if idle else None,
+        "expert_col_w": P(None, idle, "model"),
+        "expert_row_w": P(None, "model", idle),
+        "head_in": None if vocab else P(b, ..., "model"),
+        "head_w": P(None, "model") if vocab else P("model", None),
+        "head_embed": P("model", None) if vocab else P(None, "model"),
+        "head_out": None if vocab else P(b, ..., None),
+        "kv_seq": P(b, "model", None, None),
+        "kv_new": P(b, None, None, None),
+    }
+
+
+def layout_specs(cfg: ModelConfig, mesh, batch: int, collab: bool = False):
+    """``activation_specs`` and ``product_specs`` in one dict: what a
+    launcher gives ``shardctx.activation_sharding``."""
+    return {**activation_specs(cfg, mesh, batch, collab),
+            **product_specs(cfg, mesh, batch, collab)}

@@ -19,15 +19,20 @@ import torch
 from repro_torch.configs import InputShape
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.shardctx import reshape
+from repro_torch.models.shardctx import row_block
 from repro_torch.training.optim import (AdamWConfig, adamw_init,
                                         adamw_update, tree_from_leaves,
                                         tree_leaves, tree_map)
 
 
-def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True):
+def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True,
+                   microbatches: int = 1):
     """(loss, metrics, grads) of ``forward_train`` at ``params``: grads
-    has the structure of ``params``; loss and metrics are detached."""
+    has the structure of ``params``; loss and metrics are detached.
+    ``microbatches > 1`` averages them over K sequential microbatches
+    (the reference's ``lax.scan``): activation memory scales 1/K."""
+    if microbatches > 1:
+        return _accumulate(params, cfg, batch, remat, microbatches)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = M.forward_train(tree_from_leaves(params, leaves), cfg,
                                     batch, remat=remat)
@@ -36,33 +41,38 @@ def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True):
             tree_from_leaves(params, grads))
 
 
+def microbatch(x, K: int, i: int):
+    """Microbatch ``i`` of ``K`` of a batch leaf ``x``: rows
+    ``[i * B/K, (i+1) * B/K)``, the reference's split.  On a DTensor the
+    rows come out sharded as ``x``'s are, so that each device computes on
+    its share of the microbatch (``shardctx.row_block``)."""
+    b = x.shape[0] // K
+    return row_block(x, i * b, (i + 1) * b)
+
+
+def _accumulate(params, cfg: ModelConfig, batch, remat: bool, K: int):
+    grads, losses, mets = None, [], []
+    for i in range(K):
+        b = tree_map(lambda x: microbatch(x, K, i), batch)
+        lk, mk, gk = loss_and_grads(params, cfg, b, remat)
+        grads = gk if grads is None else tree_map(torch.add, grads, gk)
+        losses.append(lk)
+        mets.append(mk)
+    metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
+               for k in mets[0]}
+    return sum(losses) / K, metrics, tree_map(lambda g: g / K, grads)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1, donate: bool = False):
-    """One optimizer step.  ``microbatches > 1`` accumulates gradients over
-    K sequential microbatches (the reference's ``lax.scan``): activation
-    memory scales 1/K while the params/optimizer footprint is unchanged.
-    ``donate`` updates ``params`` and ``opt_state`` in place (the JAX
-    launcher's ``donate_argnums``)."""
+    """One optimizer step on ``loss_and_grads``'s gradients, over
+    ``microbatches`` microbatches: the params/optimizer footprint does not
+    change with them.  ``donate`` updates ``params`` and ``opt_state`` in
+    place (the JAX launcher's ``donate_argnums``)."""
 
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch)
-        else:
-            K = microbatches
-            mbs = [tree_map(lambda x: reshape(x, (K, x.shape[0] // K)
-                                              + x.shape[1:])[i], batch)
-                   for i in range(K)]
-            grads, losses, mets = None, [], []
-            for b in mbs:
-                lk, mk, gk = loss_and_grads(params, cfg, b)
-                grads = gk if grads is None else tree_map(torch.add, grads,
-                                                          gk)
-                losses.append(lk)
-                mets.append(mk)
-            grads = tree_map(lambda g: g / K, grads)
-            loss = sum(losses) / K
-            metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
-                       for k in mets[0]}
+        loss, metrics, grads = loss_and_grads(params, cfg, batch,
+                                              microbatches=microbatches)
         with torch.no_grad():
             params, opt_state = adamw_update(grads, opt_state, params,
                                              opt_cfg, inplace=donate)

@@ -16,9 +16,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.shardctx import constrain, on_shards, reshape
+from repro_torch.models.shardctx import (SUM, constrain, grad_in_layout,
+                                         on_shards, reshape, split_axes,
+                                         split_reduce)
 
 # Query-chunk length for memory-efficient full-sequence attention.
 Q_CHUNK = 1024
@@ -35,7 +38,12 @@ def rms_norm(x, params, eps: float = 1e-6):
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"].to(torch.float32)).to(dt)
+    # the scale is sharded over the model axis: whole on every device, so
+    # the product keeps x's layout (a sharded scale would shard x's last
+    # dim, and the products that follow would contract over a sharded dim
+    # and sum partial results in place of splitting their work)
+    return (x * constrain(params["scale"], "norm_scale").to(torch.float32)
+            ).to(dt)
 
 
 # --------------------------------------------------------------------------- rope
@@ -102,12 +110,44 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
     return p
 
 
+def column(x, w):
+    """``x @ w`` for a column-parallel weight ``w`` (in, out), its
+    operands laid out as ``launch.sharding.product_specs`` has them
+    ("col_in", "col_w"): the product comes out sharded on the model axis
+    and each device computes its share (the reference's HLO runs each
+    such dot on a 1/16 slice of the output width on the 16x16 mesh, and
+    on long_500k, a batch of one, also splits its contraction over the
+    data axis)."""
+    return constrain(x, "col_in") @ constrain(w, "col_w")
+
+
+def row(w):
+    """A row-parallel weight (in, out) laid out for its product
+    ("row_w"): sharded on the model axis over its input dim, which the
+    activations arrive sharded on.  The product is a partial sum over the
+    model axis, which ``residual`` reduces."""
+    return constrain(w, "row_w")
+
+
+def residual(y):
+    """A row-parallel product ``y`` (B, S, D) in the residual stream's
+    layout ("hidden"), forward and backward: the forward all-reduces the
+    partial sums over the model axis, and the backward all-reduces the
+    residual stream's gradient, a partial sum there (the column products'
+    input gradients are), before the product's backward takes it.  Left
+    partial, that gradient meets the weight's model sharding, and the
+    product's backward runs whole on every device (16 times the work on
+    the 16x16 mesh).  The reference's HLO all-reduces both over the model
+    axis."""
+    return constrain(grad_in_layout(y), "hidden")
+
+
 def _qkv(params, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = reshape(x @ params["wq"], B, S, h, hd)
-    k = reshape(x @ params["wk"], B, S, kv, hd)
-    v = reshape(x @ params["wv"], B, S, kv, hd)
+    q = reshape(column(x, params["wq"]), B, S, h, hd)
+    k = reshape(column(x, params["wk"]), B, S, kv, hd)
+    v = reshape(column(x, params["wv"]), B, S, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -135,18 +175,34 @@ def _scores_mask(q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
     return m
 
 
-def _attend(q, k, v, mask, cfg: ModelConfig):
+def _attend(q, k, v, mask, cfg: ModelConfig, keys: bool = False):
     """q: (B,Q,H,hd)  k/v: (B,K,KV,hd)  mask: (Q,K) or (B,Q,K).  On
-    DTensors each device attends its own batch rows and heads."""
-    out = on_shards(functools.partial(_attend_rows, cfg=cfg),
-                    (q, k, v, mask),
-                    dims=((0, 2), (0, 2), (0, 2),
-                          (0 if mask.dim() == 3 else None, None)),
-                    out_dims=(0, 2))
+    DTensors each device attends its own batch rows and its heads, where
+    the head counts divide the model axis, else its slice of the queries,
+    each against every key (the reference's XLA splits such heads only as
+    far as the head count allows, gcd(H, 16) ways on the 16x16 mesh, and
+    repeats each head's scores on the remaining devices).  ``keys`` splits
+    the keys instead (a
+    decode step: one query, and the cache sharded on its sequence): each
+    device attends its slice of the cache, and the softmax's max and sum
+    and the output are reduced over the devices, as the reference's HLO
+    all-reduces them."""
+    b = 0 if mask.dim() == 3 else None
+    if keys:
+        dims = ((0, None, None), (0, None, 1), (0, None, 1),
+                (b, None, mask.dim() - 1))
+        out_dims = (0, None, SUM)
+    else:
+        dims = ((0, 2, 1), (0, 2), (0, 2), (b, None, mask.dim() - 2))
+        out_dims = (0, 2, 1)
+    out = on_shards(functools.partial(_attend_rows, cfg=cfg, keys=keys),
+                    (q, k, v, mask), dims=dims, out_dims=out_dims)
     return constrain(out, "attn_out")
 
 
-def _attend_rows(q, k, v, mask, cfg: ModelConfig):
+def _attend_rows(q, k, v, mask, cfg: ModelConfig, keys: bool = False):
+    """The attention of one device's rows; where ``keys`` are split over
+    devices (``shardctx.split_axes``), the softmax of the whole row."""
     B, Q, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -163,7 +219,13 @@ def _attend_rows(q, k, v, mask, cfg: ModelConfig):
     else:
         mask = mask[:, None, None]
     logits = torch.where(mask, logits, -1e30)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    if keys and split_axes():
+        m = split_reduce(torch.amax(logits, dim=-1, keepdim=True), "max")
+        e = torch.exp(logits - m)
+        w = (e / split_reduce(torch.sum(e, dim=-1, keepdim=True), "sum")
+             ).to(v.dtype)
+    else:
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", w, v)
     return out.reshape(B, Q, H * hd)
 
@@ -191,7 +253,7 @@ def attention_full(params, x, cfg: ModelConfig, spec: LayerSpec,
             outs.append(_attend(q[:, i * Q_CHUNK:(i + 1) * Q_CHUNK], k, v,
                                 mask, cfg))
         out = torch.cat(outs, dim=1)
-    return out @ params["wo"], (k, v)
+    return residual(out @ row(params["wo"])), (k, v)
 
 
 # ------------------------------------------------------------------ KV cache utils
@@ -218,10 +280,25 @@ def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 def pad_seq(t, n: int, front: bool = False):
     """``t`` with ``n`` zero steps appended to (or put in front of) its
     axis 1: ``F.pad``'s values by a concatenation, which DTensor's rules
-    take in every torch release (some mishandle ``constant_pad_nd``)."""
-    z = torch.zeros((t.shape[0], n) + tuple(t.shape[2:]), dtype=t.dtype,
-                    device=t.device)
+    take in every torch release (some mishandle ``constant_pad_nd``).  On
+    a DTensor the zeros are laid out as ``t`` is, so the concatenation
+    keeps ``t``'s layout (a plain tensor of zeros counts as replicated,
+    and the concatenation would gather ``t``)."""
+    shape = (t.shape[0], n) + tuple(t.shape[2:])
+    if isinstance(t, DTensor):
+        z = torch.zeros_like(t[:, :1]).expand(shape)
+    else:
+        z = torch.zeros(shape, dtype=t.dtype, device=t.device)
     return torch.cat([z, t] if front else [t, z], dim=1)
+
+
+def _seq_sharded(t):
+    """A cache leaf (B, L, KV, hd) in the decode cache's layout ("kv_seq":
+    the sequence over the model axis, as the reference's compiled prefill
+    returns its caches).  Left as the attention made it, a leaf follows
+    the kv heads, which rarely divide the model axis, and is whole on
+    every device of it."""
+    return constrain(t, "kv_seq")
 
 
 def prefill_to_cache(cfg, spec, k, v, max_seq: int):
@@ -237,7 +314,7 @@ def prefill_to_cache(cfg, spec, k, v, max_seq: int):
         pos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
                          torch.full((pad,), -1, dtype=torch.int32,
                                     device=dev)])
-        return {"k": kc, "v": vc, "pos": pos}
+        return {"k": _seq_sharded(kc), "v": _seq_sharded(vc), "pos": pos}
     # keep last L positions, ring-ordered: position p in slot p % L, so
     # the last L positions rolled by start % L (a roll as two slices: not
     # every torch release has a DTensor rule for roll)
@@ -250,7 +327,8 @@ def prefill_to_cache(cfg, spec, k, v, max_seq: int):
         return torch.cat([t.narrow(dim, cut, L - cut),
                           t.narrow(dim, 0, cut)], dim=dim)
 
-    return {"k": ring(k, 1), "v": ring(v, 1), "pos": ring(ppos, 0)}
+    return {"k": _seq_sharded(ring(k, 1)), "v": _seq_sharded(ring(v, 1)),
+            "pos": ring(ppos, 0)}
 
 
 def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
@@ -262,18 +340,22 @@ def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
     q, k, v = _qkv(params, x, cfg, positions)  # (B,1,·,hd), rope'd at abs pos
     L = cache["k"].shape[1]
     # the new entry goes to slot pos % L by selection, not by an indexed
-    # write: a select keeps the cache's sequence sharding on DTensors
+    # write: a select keeps the cache's sequence sharding on DTensors.  The
+    # entry is whole but for its batch rows there, so the selection takes
+    # the cache's layout (an entry sharded on its heads, where they divide
+    # the model axis, may lead DTensor to move the whole cache to it)
     hit = torch.arange(L, device=x.device) == pos % L
+    k, v = constrain(k, "kv_new"), constrain(v, "kv_new")
     kc = torch.where(hit[:, None, None], k.to(cache["k"].dtype), cache["k"])
     vc = torch.where(hit[:, None, None], v.to(cache["v"].dtype), cache["v"])
     cpos = torch.where(hit, pos, cache["pos"])
     mask = _scores_mask(positions[0], cpos, cfg, spec, causal=True)  # (1,L)
-    out = _attend(q, kc, vc, mask, cfg)
+    out = _attend(q, kc, vc, mask, cfg, keys=True)
     # the (B, H*hd) @ wo product matmul folds (B, 1, H*hd) into; a DTensor
     # can carry another stride on the size-1 query dim, which stops the
     # fold and runs a bmm over an expanded wo, summed in another order
-    return (out[:, 0] @ params["wo"])[:, None], {"k": kc, "v": vc,
-                                                 "pos": cpos}
+    out = residual((out[:, 0] @ row(params["wo"]))[:, None])
+    return out, {"k": kc, "v": vc, "pos": cpos}
 
 
 # --------------------------------------------------------------------------- MLP
@@ -298,6 +380,6 @@ def activation(x, act: str):
 
 
 def mlp(params, x, act: str = "silu"):
-    h = constrain(activation(x @ params["w_gate"], act)
-                  * (x @ params["w_up"]), "ffn")
-    return h @ params["w_down"]
+    h = constrain(activation(column(x, params["w_gate"]), act)
+                  * column(x, params["w_up"]), "ffn")
+    return residual(h @ row(params["w_down"]))

@@ -20,6 +20,7 @@ package defines no custom gradient, so neither does the port.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -32,7 +33,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.shardctx import constrain, on_shards
+from repro_torch.models.shardctx import (SUM, constrain, on_shards,
+                                         spec_of, split_axes, split_index,
+                                         split_reduce)
 
 
 # ------------------------------------------------------------------------ init
@@ -223,19 +226,37 @@ def run_groups(groups, h, cfg: ModelConfig, positions):
 
 
 # ------------------------------------------------------------------- embeddings
+def _in_slice(ids, n: int):
+    """``ids`` as indices into this device's slice of ``n`` rows, where
+    rows are split over devices (``shardctx.split_index``), and which of
+    them fall in the slice (the others index row 0)."""
+    ids = ids.long() - split_index() * n
+    hit = (ids >= 0) & (ids < n)
+    return torch.where(hit, ids, 0), hit
+
+
 def _lookup(ids, table):
-    return table[ids.long()]
+    """``table``'s rows at ``ids``; where the table's rows are split over
+    devices (``shardctx.split_axes``), each device looks up the ids in its
+    slice and gives zeros elsewhere: a partial sum over the devices."""
+    if not split_axes():
+        return table[ids.long()]
+    ids, hit = _in_slice(ids, table.shape[0])
+    return torch.where(hit[..., None], table[ids], 0.0)
 
 
 def _embed(params, cfg: ModelConfig, inputs):
     if cfg.embed_inputs:
         h = inputs  # (B,S,D) precomputed frontend embeddings
     else:
-        # on DTensors each device looks up its own batch rows in the whole
-        # table (DTensor's rules for a lookup in a sharded table differ
-        # between releases, forward and backward)
-        h = on_shards(_lookup, (inputs, params["embed"]),
-                      dims=((0, None), (None, None)), out_dims=(0, None))
+        # on DTensors each device looks up its own batch rows in its slice
+        # of the table's rows, and the rows are summed over the model axis
+        # (DTensor's rules for a lookup in a sharded table differ between
+        # releases, forward and backward; the reference's HLO all-reduces
+        # the looked-up rows over the model axis)
+        h = constrain(on_shards(_lookup, (inputs, params["embed"]),
+                                dims=((0, None, None), (None, None, 0)),
+                                out_dims=(0, None, SUM)), "hidden")
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)
@@ -243,10 +264,18 @@ def _embed(params, cfg: ModelConfig, inputs):
 
 
 def _lm_head(params, cfg: ModelConfig, h):
+    # the head's weight whole on the data axes and sharded on the vocab
+    # over the model axis, so the logits come out vocab-sharded, as the
+    # "logits" spec has them; where the vocab does not divide the axis,
+    # the product contracts over d_model split there, and the logits are
+    # summed (the reference's HLO splits the contraction and all-reduces
+    # the logits likewise)
+    h = constrain(h, "head_in")
     if "lm_head" in params:
-        logits = h @ params["lm_head"]
+        logits = h @ constrain(params["lm_head"], "head_w")
     else:
-        logits = h @ params["embed"].T
+        logits = h @ constrain(params["embed"], "head_embed").T
+    logits = constrain(logits, "head_out")
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = (c * torch.tanh(logits.to(torch.float32) / c)
@@ -280,19 +309,78 @@ def forward(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
 LOSS_CHUNK = 512
 
 
+class _SplitLSE(torch.autograd.Function):
+    """Log-sum-exp over the last dim, split over devices: each device
+    holds a slice of the dim, and the max and the sum of exponentials are
+    all-reduced over the split axes (``shardctx.split_reduce``; the
+    reference's HLO all-reduces the two (rows,) vectors likewise).  The
+    result is whole on every device, so the gradient of each slice is
+    local: the incoming gradient times the slice's softmax."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = split_reduce(torch.amax(x, dim=-1, keepdim=True), "max")
+        e = torch.exp(x - m)
+        s = split_reduce(torch.sum(e, dim=-1, keepdim=True), "sum")
+        ctx.save_for_backward(e / s)
+        return (torch.log(s) + m)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        p, = ctx.saved_tensors
+        return g[..., None] * p
+
+
+def _lse(logits):
+    """``torch.logsumexp`` over the last dim, which may be split over
+    devices."""
+    if not split_axes():
+        return torch.logsumexp(logits, dim=-1)
+    return _SplitLSE.apply(logits)
+
+
+def _gold(logits, labels):
+    """Each row's logit at its label; where the vocab is split over
+    devices (``shardctx.split_axes``), each device takes the labels in
+    its slice and gives zeros elsewhere: a partial sum over the
+    devices."""
+    if not split_axes():
+        return torch.take_along_dim(logits, labels[..., None].long(),
+                                    dim=-1)[..., 0]
+    ids, hit = _in_slice(labels, logits.shape[-1])
+    g = torch.take_along_dim(logits, ids[..., None], dim=-1)[..., 0]
+    return torch.where(hit, g, 0.0)
+
+
+def _xent_rows(hc, lc, mc, w, cfg: ModelConfig, key: str):
+    """Each row's (summed NLL, count) of a chunk's masked positions, with
+    the head's weight ``w`` (``params[key]``) whole."""
+    logits = _lm_head({key: w}, cfg, hc).to(torch.float32)
+    nll = torch.logsumexp(logits, dim=-1) - torch.take_along_dim(
+        logits, lc[..., None].long(), dim=-1)[..., 0]
+    return (torch.sum(torch.where(mc, nll, 0.0), dim=1),
+            torch.sum(mc.to(torch.float32), dim=1))
+
+
 def _xent_chunk(params, cfg: ModelConfig, hc, lc, mc):
     """(summed NLL, count) of one chunk's masked positions."""
+    if isinstance(hc, DTensor) and spec_of("logits")[-1] is None:
+        # the vocab does not divide the model axis (so "logits" keeps it
+        # whole): each device takes its rows and a slice of the chunk's
+        # positions, against the whole head, in place of repeating the
+        # head's product on every device of the model axis
+        key = "lm_head" if "lm_head" in params else "embed"
+        tot, cnt = on_shards(functools.partial(_xent_rows, cfg=cfg, key=key),
+                             (hc, lc, mc, params[key]),
+                             dims=((0, None, 1), (0, None, 1), (0, None, 1),
+                                   (None, None)),
+                             out_dims=((0, None, SUM), (0, None, SUM)))
+        return torch.sum(tot), torch.sum(cnt)
     logits = _lm_head(params, cfg, hc).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    if isinstance(logits, DTensor):
-        # the vocab axis may be sharded: a masked sum (exact, one nonzero
-        # term a row), which DTensor reduces across the shards
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        gold = torch.sum(torch.where(vocab == lc[..., None], logits, 0.0),
-                         dim=-1)
-    else:
-        gold = torch.take_along_dim(logits, lc[..., None].long(),
-                                    dim=-1)[..., 0]
+    # on DTensors each device takes its rows and its slice of the vocab
+    lse = on_shards(_lse, (logits,), dims=((0, None, 2),), out_dims=(0, None))
+    gold = on_shards(_gold, (logits, lc), dims=((0, None, 2), (0, None)),
+                     out_dims=(0, None, SUM))
     tot = torch.sum(torch.where(mc, lse - gold, 0.0))
     return tot, torch.sum(mc.to(torch.float32))
 

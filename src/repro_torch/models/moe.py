@@ -139,7 +139,8 @@ def moe_ffn(params, x, cfg: ModelConfig):
     k, E = cfg.experts_per_token, cfg.num_experts
     cap = capacity(T, cfg)
 
-    logits = grad_in_layout(x.to(torch.float32) @ params["router"])  # (G,T,E)
+    logits = grad_in_layout(L.column(x.to(torch.float32),
+                                     params["router"]))  # (G,T,E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k puts the lower index first on ties; a stable
     # descending sort does the same (torch.topk promises no order), so
@@ -166,14 +167,21 @@ def moe_ffn(params, x, cfg: ModelConfig):
     buf = constrain(_per_group(functools.partial(_dispatch, E=E, cap=cap),
                                x, flat_ids, slot), "moe_buf")
 
-    # expert FFN (active FLOPs only: G * E * cap * D * F)
-    h = constrain(_expert_product("gecd,edf->gecf", buf, params["w_gate"]),
-                  "moe_h")
-    u = constrain(_expert_product("gecd,edf->gecf", buf, params["w_up"]),
-                  "moe_h")
+    # expert FFN (active FLOPs only: G * E * cap * D * F).  Each layer's
+    # expert stacks are laid out as a dense FFN's weights
+    # (``launch.sharding.product_specs``): each device computes its share
+    # of F, and the weight gradients are reduce-scattered a layer at a time
+    buf = constrain(buf, "expert_in")
+    h = constrain(_expert_product(
+        "gecd,edf->gecf", buf, constrain(params["w_gate"], "expert_col_w")),
+        "moe_h")
+    u = constrain(_expert_product(
+        "gecd,edf->gecf", buf, constrain(params["w_up"], "expert_col_w")),
+        "moe_h")
     act = L.activation(h, cfg.mlp_act) * u
-    yb = constrain(_expert_product("gecf,efd->gecd", act.to(x.dtype),
-                                   params["w_down"]).to(x.dtype), "moe_buf")
+    yb = constrain(_expert_product(
+        "gecf,efd->gecd", act.to(x.dtype),
+        constrain(params["w_down"], "expert_row_w")).to(x.dtype), "moe_buf")
 
     # gather back + gate combine; overflow slot contributes zero via mask
     out_k = _per_group(_gather_back, yb, flat_ids, slot)  # (G,Tk,D)

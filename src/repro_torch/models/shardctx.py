@@ -13,13 +13,27 @@ otherwise choose op by op.  An axis that does not divide its dim (a
 short sequence's one SSD chunk on a 16-way axis) is left out: XLA pads
 such a dim, while DTensor's view ops refuse an uneven shard.  So is an
 axis of size 1, which shards nothing but still stops DTensor from
-merging the dim with its neighbours.
+merging the dim with its neighbours.  Besides the reference's names,
+the models constrain each product's operands (a weight, a norm's scale,
+the head's input) by the names of ``launch.sharding.product_specs``
+before the product, as the reference's XLA lays them out, so that no
+torch release's op-by-op choice decides how much of a product each
+device computes.  A spec may hold one ``...``, which stands for as many
+``None`` entries as ``x`` has dims beyond the spec's others (an operand
+with or without a sequence dim).
 
-``reshape(x, *shape)`` is ``x.reshape`` for the reshapes that split a dim
-the specs may shard (heads out of a projection's width, microbatches out
-of the batch).  DTensor cannot split a dim sharded n ways into dims whose
-first is not a multiple of n, where XLA would reshard; so such a dim is
-gathered first.
+``row_block(x, start, stop)`` is ``x[start:stop]`` laid out as ``x``:
+where ``x``'s rows are sharded, each device receives its share of the
+block from the devices that hold it, in one all-to-all (DTensor's slice
+of a sharded dim would gather the whole dim to every device: the whole
+batch, for a microbatch).
+
+``reshape(x, *shape)`` is ``x.reshape`` for the reshapes that split or
+merge a dim the specs may shard (heads out of a projection's width,
+a head's dims back into the width).
+DTensor cannot split a dim sharded n ways into dims whose first is not a
+multiple of n, nor (torch 2.11) merge a sharded dim into the dim before
+it, where XLA would reshard; so such a dim is gathered first.
 
 ``grad_in_layout(x)`` is ``x``, but the gradient that reaches it in the
 backward pass is redistributed to ``x``'s own placements (a partial sum to
@@ -35,9 +49,11 @@ applies it to what it returns.
 ``on_shards(fn, args, dims, out_dims)`` runs the parts of a layer that
 are independent across batch rows and heads (attention's scores and
 softmax, the SSD scan, the Mamba2 decode update, the MoE dispatch) on
-each device's own rows and heads.  Those are einsum and view chains whose
-DTensor rules differ between torch releases and refuse sharded dims they
-merge; on local tensors they are the plain ops.
+each device's own rows and heads, or its slice of a third dim (queries,
+keys, chunks, vocab rows) where the heads leave the model axis free.
+Those are einsum and view chains whose DTensor rules differ between
+torch releases and refuse sharded dims they merge; on local tensors they
+are the plain ops.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ import threading
 from typing import Dict, Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -70,25 +87,104 @@ def activation_sharding(specs: Dict):
         _state.specs = prev
 
 
+def spec_of(name: str):
+    """The active spec named ``name`` (None outside a sharding context)."""
+    specs = _specs()
+    return None if specs is None else specs.get(name)
+
+
 def constrain(x, name: str):
     specs = _specs()
     if specs is None or not isinstance(x, DTensor):
         return x
     spec = specs.get(name)
+    if spec is not None and ... in spec:
+        k = spec.index(...)
+        spec = spec[:k] + (None,) * (x.ndim - len(spec) + 1) + spec[k + 1:]
     if spec is None or len(spec) != x.ndim:
         return x
+    return _to_spec(x, spec)
+
+
+def _like(y, x):
+    """``y`` laid out as ``x`` is, on each dim that the axes sharding it
+    in ``x`` divide in ``y``; ``y`` itself where ``x`` is plain."""
+    if not isinstance(x, DTensor):
+        return y
+    names = x.device_mesh.mesh_dim_names
+    spec = [()] * x.ndim
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            spec[p.dim] += (names[m],)
+    return _to_spec(y, tuple(e or None for e in spec))
+
+
+def row_block(x, start: int, stop: int):
+    """Rows ``[start, stop)`` of ``x``, laid out as ``x`` is.  On a
+    DTensor whose rows are sharded (evenly, also in the block) and which
+    is whole on its other mesh axes, device t of the n that shard the rows
+    (in the order of their shards) receives the block's rows
+    ``[t * m/n, (t+1) * m/n)`` from the devices that hold them, in one
+    all-to-all over those axes; else the rows are gathered first."""
+    if not isinstance(x, DTensor):
+        return x[start:stop]
+    mesh, m = x.device_mesh, stop - start
+    axes = [d for d, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == 0]
+    n = math.prod(mesh.size(d) for d in axes)
+    if not axes or m % n or any(
+            not (p.is_replicate() or d in axes)
+            for d, p in enumerate(x.placements)):
+        whole = x.redistribute(mesh, [Replicate() if d in axes else p
+                                      for d, p in enumerate(x.placements)])
+        return _like(whole[start:stop], x)
+    r, q = x.shape[0] // n, m // n  # rows a device holds, and receives
+    me = 0
+    for d in axes:
+        me = me * mesh.size(d) + mesh.get_local_rank(d)
+
+    def overlap(src, dst):  # rows of device src's shard that dst receives
+        lo = max(src * r, start + dst * q)
+        return max(0, min((src + 1) * r, start + (dst + 1) * q) - lo)
+
+    sends = [overlap(me, t) for t in range(n)]
+    recvs = [overlap(s, me) for s in range(n)]
+    lo = max(me * r, start) - me * r
+    loc = x.to_local()[lo:lo + sum(sends)].contiguous()
+    group = (mesh, axes[0]) if len(axes) == 1 else \
+        mesh[tuple(mesh.mesh_dim_names[d] for d in axes)]._flatten()
+    out = funcol.wait_tensor(funcol.all_to_all_single(loc, recvs, sends,
+                                                      group))
+    shape = (m,) + tuple(x.shape[1:])
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _to_spec(x, spec):
     mesh = x.device_mesh
     spec = tuple(None if e is None or _axis_size(mesh, e) == 1
                  else _fit(d, mesh, e) for d, e in zip(x.shape, spec))
     placements = spec_placements(spec, mesh)
     if tuple(x.placements) == placements:
         return x
-    return x.redistribute(mesh, placements)
+    out = x.redistribute(mesh, placements)
+    loc = out.to_local()
+    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+        # a shard cut out of a gathered tensor (gloo has no all-to-all, so
+        # DTensor moves a shard between dims by an all-gather and a chunk)
+        # would keep the whole gather alive: copied out
+        out = DTensor.from_local(loc.clone(), mesh, placements,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out
 
 
-def _uneven_splits(old, new, counts) -> set:
-    """Dims of ``old`` that the reshape to ``new`` splits into dims whose
-    first is not a multiple of the dim's shard count ``counts[d]``."""
+def _unviewable(old, new, counts) -> set:
+    """Sharded dims of ``old`` (``counts[d]`` shards) that the reshape to
+    ``new`` splits into dims whose first is not a multiple of the shard
+    count, or merges into a dim after a preceding dim of size > 1."""
     bad, i, j = set(), 0, 0
     while i < len(old) and j < len(new):
         ins, outs = [i], [j]
@@ -105,6 +201,9 @@ def _uneven_splits(old, new, counts) -> set:
                 j += 1
         if len(ins) == 1 and len(outs) > 1 and new[outs[0]] % counts[ins[0]]:
             bad.add(ins[0])
+        for k in range(1, len(ins) if len(outs) == 1 else 0):
+            if counts[ins[k]] > 1 and math.prod(old[e] for e in ins[:k]) > 1:
+                bad.add(ins[k])
     return bad
 
 
@@ -144,7 +243,7 @@ def reshape(x, *shape):
     for m, p in enumerate(x.placements):
         if isinstance(p, Shard):
             counts[p.dim] *= mesh.size(m)
-    bad = _uneven_splits(tuple(x.shape), tuple(shape), counts)
+    bad = _unviewable(tuple(x.shape), tuple(shape), counts)
     if bad:
         x = x.redistribute(mesh, [
             Replicate() if isinstance(p, Shard) and p.dim in bad else p
@@ -152,41 +251,111 @@ def reshape(x, *shape):
     return grad_in_layout(x.reshape(shape))
 
 
-def on_shards(fn, args, dims, out_dims):
-    """``fn(*args)`` on each device's batch rows and heads.
+# an ``out_dims`` split entry: the output is a partial sum over the
+# split axes (each device's share comes from its slice of a contraction)
+SUM = "sum"
 
-    ``dims[i]`` is the (batch dim, head dim) of ``args[i]``, either None;
-    ``out_dims`` is that pair for ``fn``'s output, or a tuple of pairs for
-    several outputs.  Plain tensors go straight to ``fn``.  On DTensors,
-    each mesh axis that shards the first argument's batch dim shards every
-    argument's batch dim; each axis that shards its head dim shards every
-    argument's head dim, when every head count divides; every other axis
-    holds whole copies.  ``fn`` runs on the local tensors and its outputs
-    come back as DTensors of that layout.  An argument whole on an axis
-    that shards the others gets its gradient as a partial sum there: each
-    device's share comes from its own rows or heads."""
+
+def split_axes() -> tuple:
+    """Inside ``on_shards``'s ``fn``: the mesh axes that split the
+    arguments' split dims (empty on plain tensors)."""
+    return getattr(_state, "split", (None, ()))[1]
+
+
+def split_index() -> int:
+    """Inside ``on_shards``'s ``fn``: this device's index among the
+    devices that split the split dims, in the order of its slices (0 where
+    nothing is split)."""
+    mesh, axes = getattr(_state, "split", (None, ()))
+    i = 0
+    for m in axes:
+        i = i * mesh.size(m) + mesh.get_local_rank(m)
+    return i
+
+
+def split_reduce(t, op: str):
+    """Inside ``on_shards``'s ``fn``: ``t`` all-reduced with ``op`` ("max"
+    or "sum") over the split axes, so each device holds the reduction over
+    every device's slice; ``t`` itself where nothing is split."""
+    mesh, axes = getattr(_state, "split", (None, ()))
+    for m in axes:
+        t = funcol.all_reduce(t, op, (mesh, m))
+    return t
+
+
+def on_shards(fn, args, dims, out_dims):
+    """``fn(*args)`` on each device's batch rows and heads, or its rows
+    and a slice of a third dim.
+
+    ``dims[i]`` is the (batch dim, head dim) or (batch dim, head dim,
+    split dim) of ``args[i]``, each None or an int; ``out_dims`` is that
+    triple or pair for ``fn``'s output, or a tuple of them for several
+    outputs, and a split entry ``SUM`` marks an output that is a partial
+    sum over the split axes.  Plain tensors go straight to ``fn``.  On
+    DTensors, each mesh axis that shards the first argument's batch dim
+    shards every argument's batch dim; each axis that shards its head dim
+    shards every argument's head dim, when every head count divides.
+    When the arguments name split dims, the other axes of size > 1 (those
+    of them that already shard an argument's split dim, where any does)
+    shard every argument's split dim, the innermost of them whose product
+    every split dim divides (attention's queries, where the heads do not
+    divide the model axis, or a decode step's keys, as the cache holds
+    them); inside ``fn``, ``split_axes``, ``split_index`` and
+    ``split_reduce`` see those axes.  Every
+    other axis holds whole copies.  ``fn`` runs on the local tensors and
+    its outputs come back as DTensors of that layout.  An argument whole
+    on an axis that shards the others gets its gradient as a partial sum
+    there: each device's share comes from its own rows, heads or slice."""
     first = args[0]
     if not isinstance(first, DTensor):
         return fn(*args)
     mesh = first.device_mesh
-    b0, h0 = dims[0]
+    dims = [tuple(d) + (None,) * (3 - len(d)) for d in dims]
+    b0, h0, _ = dims[0]
 
     def axes(d):
         return [m for m, p in enumerate(first.placements)
                 if d is not None and isinstance(p, Shard) and p.dim == d]
 
+    def size(ms):
+        return math.prod(mesh.size(m) for m in ms)
+
+    def fits(k, n):
+        return not any(isinstance(a, torch.Tensor) and d[k] is not None
+                       and a.shape[d[k]] % n for a, d in zip(args, dims))
+
     batch, heads = axes(b0), axes(h0)
-    n = math.prod(mesh.size(m) for m in heads)
-    if any(isinstance(a, torch.Tensor) and h is not None and a.shape[h] % n
-           for a, (_, h) in zip(args, dims)):
+    if not fits(1, size(heads)):
         heads = []
+    free = [m for m in range(mesh.ndim)
+            if m not in batch + heads and mesh.size(m) > 1]
+    held = [m for m in free if any(
+        isinstance(a, DTensor) and d[2] is not None
+        and a.placements[m] == Shard(d[2]) for a, d in zip(args, dims))]
+    split = held or free
+    if not any(d[2] is not None for d in dims):
+        split = []
+    while split and not fits(2, size(split)):
+        split = split[1:]
 
     def placements(d, whole=Replicate()):
-        b, h = d
-        return tuple(Shard(b) if b is not None and m in batch
-                     else Shard(h) if h is not None and m in heads
-                     else whole if m in batch + heads
-                     else Replicate() for m in range(mesh.ndim))
+        d = tuple(d) + (None,) * (3 - len(d))
+        b, h, s = d
+        out = []
+        for m in range(mesh.ndim):
+            if b is not None and m in batch:
+                out.append(Shard(b))
+            elif h is not None and m in heads:
+                out.append(Shard(h))
+            elif m in split and s == SUM:
+                out.append(Partial())
+            elif m in split and s is not None:
+                out.append(Shard(s))
+            elif m in batch + heads + split:
+                out.append(whole)
+            else:
+                out.append(Replicate())
+        return tuple(out)
 
     args = [DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
@@ -199,6 +368,15 @@ def on_shards(fn, args, dims, out_dims):
     several = isinstance(out_dims[0], tuple)
     out_pl = tuple(placements(d) for d in (out_dims if several
                                            else (out_dims,)))
-    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+
+    def local(*xs):
+        prev = getattr(_state, "split", (None, ()))
+        _state.split = (mesh, tuple(split))
+        try:
+            return fn(*xs)
+        finally:
+            _state.split = prev
+
+    return local_map(local, out_placements=out_pl, in_placements=in_pl,
                      in_grad_placements=grad_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*args)

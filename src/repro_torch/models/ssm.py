@@ -9,14 +9,14 @@ equivalence with the sequential recurrence.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import pad_seq
+from repro_torch.models.layers import column, pad_seq, residual, row
 from repro_torch.models.shardctx import (constrain, grad_in_layout,
                                          on_shards, reshape)
 
@@ -99,40 +99,14 @@ def _segsum_decay(dA_cum):
     return torch.exp(torch.movedim(diff, -1, -3))  # (...,H,Q,Q)
 
 
-def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
-    """Chunked SSD scan.
-
-    x: (B,S,H,P)  dt: (B,S,H)  A: (H,)  Bm/Cm: (B,S,G,N)
-    Returns y: (B,S,H,P), final state (B,H,P,N).
-    """
-    Bsz, S, H, P = x.shape
-    N = Bm.shape[-1]
-    Q = min(cfg.ssm_chunk, S)
-    S_real = S
-    if S % Q != 0:
-        # pad with dt=0 steps: decay exp(0)=1 and zero input leave the state
-        # recurrence unchanged; padded outputs are discarded below.
-        pad = Q - S % Q
-
-        def z2(t):
-            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-
-        x, dt, Bm, Cm = z2(x), z2(dt), z2(Bm), z2(Cm)
-        S = S + pad
-    nc = S // Q
-    rep = H // Bm.shape[2]
-    Bh = torch.repeat_interleave(Bm, rep, dim=2)  # (B,S,H,N)
-    Ch = torch.repeat_interleave(Cm, rep, dim=2)
-
-    # the reference shards the chunk axis nc of every intra-chunk tensor
-    # over "model" here (launch.sharding.activation_specs); the port runs
-    # the scan on each device's rows and heads instead (mamba_forward), so
-    # these constraints meet local tensors and leave them as they are
-    def r(t, name):
-        return constrain(t.reshape((Bsz, nc, Q) + tuple(t.shape[2:])), name)
-
-    xc, dtc = r(x, "ssm_chunk_x"), r(dt, "ssm_chunk_dt")
-    Bc, Cc = r(Bh, "ssm_chunk_bc"), r(Ch, "ssm_chunk_bc")
+def _chunk_terms(xc, dtc, A, Bc, Cc):
+    """The intra-chunk output and each chunk's state contribution of the
+    chunks given.  xc: (B,nc,Q,H,P)  dtc: (B,nc,Q,H)  A: (H,)
+    Bc/Cc: (B,nc,Q,G,N).  Returns Yd (B,nc,Q,H,P), Sc (B,nc,H,P,N) and
+    the within-chunk cumsum of dt*A (B,nc,Q,H)."""
+    rep = xc.shape[3] // Bc.shape[3]
+    Bc = torch.repeat_interleave(Bc, rep, dim=3)  # (B,nc,Q,H,N)
+    Cc = torch.repeat_interleave(Cc, rep, dim=3)
     dA = dtc * A  # (B,nc,Q,H)
     cum = torch.cumsum(dA, dim=2)
     xdt = xc * dtc[..., None]
@@ -147,22 +121,77 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
     Sc = constrain(torch.einsum("bcjhn,bcjhp->bchpn", Bc,
                                 xdt * decay_out[..., None]), "ssm_chunk_s")
+    return Yd, Sc, cum
 
-    # inter-chunk recurrence: the final state and the state entering each
-    # chunk
-    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
-    h = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device) \
+
+def _recurrence(Sc, last, h0):
+    """The inter-chunk recurrence over every chunk: the state entering
+    each chunk (B,nc,H,P,N) and the final state (B,H,P,N).  last: the
+    cumsum's last step of each chunk (B,nc,H)."""
+    Bsz, nc, H, P, N = Sc.shape
+    chunk_decay = torch.exp(last)  # (B,nc,H)
+    h = torch.zeros((Bsz, H, P, N), dtype=Sc.dtype, device=Sc.device) \
         if h0 is None else h0
     h_in = []
     for c in range(nc):
         h_in.append(h)
         h = h * chunk_decay[:, c, :, None, None] + Sc[:, c]
-    h_in = torch.stack(h_in, dim=1)  # (B,nc,H,P,N)
+    return torch.stack(h_in, dim=1), h
 
-    Yo = constrain(torch.einsum("bcihn,bchpn->bcihp",
-                                Cc * torch.exp(cum)[..., None], h_in),
-                   "ssm_chunk_x")
-    y = (Yd + Yo).reshape(Bsz, S, H, P)[:, :S_real]
+
+def _chunk_out(Cc, cum, h_in):
+    """Each chunk's output from the state entering it (B,nc,Q,H,P)."""
+    Cc = torch.repeat_interleave(Cc, cum.shape[3] // Cc.shape[3], dim=3)
+    return constrain(torch.einsum("bcihn,bchpn->bcihp",
+                                  Cc * torch.exp(cum)[..., None], h_in),
+                     "ssm_chunk_x")
+
+
+def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
+    """Chunked SSD scan.
+
+    x: (B,S,H,P)  dt: (B,S,H)  A: (H,)  Bm/Cm: (B,S,G,N)
+    Returns y: (B,S,H,P), final state (B,H,P,N).
+
+    On DTensors the intra-chunk terms and outputs run on each device's
+    batch rows and its slice of the chunks, the chunk axis sharded over
+    the model axis as the reference's "ssm_chunk_*" specs shard it; the
+    recurrence between chunks runs on every chunk's state on each device
+    (the states are small: one (H, P, N) a chunk and row).
+    """
+    Bsz, S, H, P = x.shape
+    Q = min(cfg.ssm_chunk, S)
+    S_real = S
+    if S % Q != 0:
+        # pad with dt=0 steps: decay exp(0)=1 and zero input leave the state
+        # recurrence unchanged; padded outputs are discarded below.
+        pad = Q - S % Q
+
+        def z2(t):
+            if isinstance(t, DTensor):
+                return pad_seq(t, pad)
+            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+        x, dt, Bm, Cm = z2(x), z2(dt), z2(Bm), z2(Cm)
+        S = S + pad
+    nc = S // Q
+
+    def r(t, name):
+        return constrain(reshape(t, (Bsz, nc, Q) + tuple(t.shape[2:])), name)
+
+    xc, dtc = r(x, "ssm_chunk_x"), r(dt, "ssm_chunk_dt")
+    Bc, Cc = r(Bm, "ssm_chunk_bc"), r(Cm, "ssm_chunk_bc")
+    Yd, Sc, cum = on_shards(_chunk_terms, (xc, dtc, A, Bc, Cc),
+                            dims=((0, 3, 1), (0, 3, 1), (None, 0),
+                                  (0, None, 1), (0, None, 1)),
+                            out_dims=((0, 3, 1), (0, 2, 1), (0, 3, 1)))
+    h_in, h = on_shards(_recurrence, (Sc, cum[:, :, -1, :], h0),
+                        dims=((0, 2), (0, 2), (0, 1)),
+                        out_dims=((0, 2), (0, 1)))
+    Yo = on_shards(_chunk_out, (Cc, cum, h_in),
+                   dims=((0, None, 1), (0, 3, 1), (0, 2, 1)),
+                   out_dims=(0, 3, 1))
+    y = reshape(Yd + Yo, Bsz, S, H, P)[:, :S_real]
     return y, h
 
 
@@ -171,11 +200,15 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
     """Full-sequence mamba2 block.  x: (B,S,D)."""
     Bsz, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z = constrain(x @ params["in_z"], "ssm_inner")
-    xr = constrain(x @ params["in_x"], "ssm_inner")
-    Br = x @ params["in_B"]
-    Cr = x @ params["in_C"]
-    dt = grad_in_layout(x @ params["in_dt"])
+    # z's gradient comes out of the gated norm as a partial sum over the
+    # model axis (its variance reduces over the sharded inner dim): reduced
+    # to z's layout before the product's backward takes it, as for
+    # ``layers.residual``
+    z = grad_in_layout(constrain(column(x, params["in_z"]), "ssm_inner"))
+    xr = constrain(column(x, params["in_x"]), "ssm_inner")
+    Br = column(x, params["in_B"])
+    Cr = column(x, params["in_C"])
+    dt = grad_in_layout(column(x, params["in_dt"]))
     xs = constrain(_causal_conv(xr, params["conv_x"], params["conv_bx"]),
                    "ssm_inner")
     Bm = _causal_conv(Br, params["conv_B"], params["conv_bB"])
@@ -188,17 +221,12 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
     # its threshold of 20, where log1p(exp(-x)) < 2.1e-9 is below half an
     # fp32 ulp of x, so the two agree in fp32
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
-    # on DTensors the scan runs on each device's batch rows and heads (the
-    # B/C streams are shared by the heads)
-    y, hT = on_shards(functools.partial(ssd_chunked, cfg),
-                      (xs, dt.to(xs.dtype), A.to(xs.dtype), Bm, Cm, h0),
-                      dims=((0, 2), (0, 2), (None, 0), (0, None), (0, None),
-                            (0, 1)),
-                      out_dims=((0, 2), (0, 1)))
+    y, hT = ssd_chunked(cfg, xs, dt.to(xs.dtype), A.to(xs.dtype), Bm, Cm,
+                        h0)
     y = y + params["D"].to(y.dtype)[:, None] * xs
     y = constrain(y.reshape(Bsz, S, -1), "ssm_inner")
-    out = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps) \
-        @ params["out_proj"]
+    out = residual(_gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
+                   @ row(params["out_proj"]))
     if return_cache:
         K = cfg.ssm_conv
         conv_cache = {
@@ -259,15 +287,16 @@ def mamba_decode(params, x, cache, cfg: ModelConfig):
     """One-token decode.  x: (B,1,D).  O(1) state update.  Returns the
     output and a new cache; ``cache`` itself is not changed.  On DTensors
     the convs and the update run on each device's batch rows and
-    channels or heads."""
+    channels, and heads or, where the heads do not divide the model axis,
+    a slice of each head's dims (the update is independent per dim)."""
     Bsz = x.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     x0 = x[:, 0]
-    z = x0 @ params["in_z"]
-    xr = x0 @ params["in_x"]
-    Br = x0 @ params["in_B"]
-    Cr = x0 @ params["in_C"]
-    dt = x0 @ params["in_dt"]
+    z = column(x0, params["in_z"])
+    xr = column(x0, params["in_x"])
+    Br = column(x0, params["in_B"])
+    Cr = column(x0, params["in_C"])
+    dt = column(x0, params["in_dt"])
 
     def dconv(stream, cur):
         return on_shards(_decode_conv, (cache["conv"][stream], cur,
@@ -286,11 +315,11 @@ def mamba_decode(params, x, cache, cfg: ModelConfig):
                      (reshape(xs, Bsz, H, P), reshape(Bm, Bsz, SSM_GROUPS, N),
                       reshape(Cm, Bsz, SSM_GROUPS, N), dt, A, params["D"],
                       cache["state"]),
-                     dims=((0, 1), (0, None), (0, None), (0, 1), (None, 0),
-                           (None, 0), (0, 1)),
-                     out_dims=((0, 1), (0, 1)))
-    y = y.reshape(Bsz, -1)
+                     dims=((0, 1, 2), (0, None), (0, None), (0, 1),
+                           (None, 0), (None, 0), (0, 1, 2)),
+                     out_dims=((0, 1, 2), (0, 1, 2)))
+    y = reshape(y, Bsz, -1)
     out = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps) \
-        @ params["out_proj"]
+        @ row(params["out_proj"])
     new_cache = {"state": h, "conv": {"x": cx, "B": cB, "C": cC}}
-    return out[:, None], new_cache
+    return residual(out[:, None]), new_cache

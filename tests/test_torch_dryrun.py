@@ -222,6 +222,83 @@ def test_dryrun_pairs_on_a_fake_2x2_mesh():
         assert 0 < frac < 1.5, (arch, sname, frac)
 
 
+# ------------------------- against the reference's own dry-run, 16x16
+def _tool():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_vs_reference", os.path.join(os.path.dirname(__file__), "..",
+                                            "tools", "dryrun_vs_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# pairs that trace and compile in seconds: an attention decode, a long
+# prefill and a MoE decode
+REF_PAIRS = [("gemma2-2b", "decode_32k"), ("gemma2-2b", "prefill_32k"),
+             ("mixtral-8x7b", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def against_reference():
+    """``tools/dryrun_vs_reference.py`` on REF_PAIRS, 16x16: the
+    reference's ``lower_pair`` (Auto mesh axes) and the port's, each in a
+    subprocess, side by side."""
+    return _tool().run(REF_PAIRS)
+
+
+@pytest.mark.parametrize("arch,shape", REF_PAIRS)
+def test_dryrun_against_the_reference_on_16x16(against_reference, arch,
+                                              shape):
+    """Per device, against the reference's compiled program of the same
+    pair: roofline flops at most 1.3x, roofline collective bytes and
+    total_nonalias_bytes at most 2x.  The flops stay above half the
+    reference's: its XLA repeats attention work where the heads do not
+    divide the model axis (gemma2-2b's 8 heads run on 2 devices each), the
+    port does not, and nothing else may go missing."""
+    T = _tool()
+    res = against_reference[(arch, shape)]
+    assert "error" not in res["ref"], res["ref"]
+    assert "error" not in res["port"], res["port"]
+    r = T.ratios(res)
+    assert r["flops"] <= 1.3 and r["coll_bytes"] <= 2.0 \
+        and r["memory_bytes"] <= 2.0, (arch, shape, r)
+    assert r["flops"] >= 0.5, (arch, shape, r)
+    ref = _chip_smoke_reference().get(f"{arch} {shape}")
+    if ref is not None:  # chip_smoke.py holds the card to these figures
+        assert ref == T.figures(res["ref"])
+
+
+def test_the_tool_compares_trip_count_aware_collective_bytes():
+    """The reference's collective bytes that the tool compares are its
+    roofline's, which multiply each loop body by its trip count, not its
+    ``collectives`` dict, which counts a loop body once: on gemma2-2b
+    train_4k (13 layer groups, 4 microbatches, both scanned) the dict
+    holds under a tenth of the roofline's figure."""
+    T = _tool()
+    rep = T.run([("gemma2-2b", "train_4k")], side="ref")[
+        ("gemma2-2b", "train_4k")]["ref"]
+    assert "error" not in rep, rep
+    got = T.figures(rep)
+    assert got["coll_bytes"] == rep["roofline"]["coll_bytes"]
+    assert got["flops"] == rep["roofline"]["flops"]
+    assert got["memory_bytes"] == rep["memory"]["total_nonalias_bytes"]
+    assert rep["roofline"]["coll_bytes"] > 10 * rep["collectives"]["total"]
+    # chip_smoke.py holds the card's dry-run to these very figures
+    assert _chip_smoke_reference()["gemma2-2b train_4k"] == got
+
+
+def _chip_smoke_reference():
+    """``chip_smoke.py``'s REFERENCE_DRYRUN (read from its text: the
+    script's own imports want the card)."""
+    import ast
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    tree = ast.parse(open(path).read())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and n.targets[0].id == "REFERENCE_DRYRUN")
+    return ast.literal_eval(node.value)
+
+
 # ------------------------------------- reduced train steps, fake 4x4 mesh
 PROBE = os.path.join(os.path.dirname(__file__), "..", "tools",
                      "dtensor_probe.py")
@@ -259,8 +336,8 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.launch import steps as ST
-from repro_torch.launch.sharding import (NamedSharding, activation_specs,
-                                         batch_spec, distribute,
+from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                         distribute, layout_specs,
                                          leaves_with_path, shard_params)
 from repro_torch.models import model as M
 from repro_torch.models.shardctx import activation_sharding
@@ -276,7 +353,7 @@ for i, arch in enumerate(sys.argv[3].split(",")):
     toks = torch.from_numpy(np.load(f"{d}/tokens.npy"))
     B = toks.shape[0]
     tb = NamedSharding(mesh, batch_spec(mesh, B, 1))
-    with activation_sharding(activation_specs(cfg, mesh, B)), \
+    with activation_sharding(layout_specs(cfg, mesh, B)), \
             implicit_replication():
         for serving in (True, False):
             dp = distribute(params, shard_params(params, mesh, cfg,
@@ -339,3 +416,183 @@ def test_sharded_forward_and_train_step_on_four_gloo_ranks(tmp_path):
         for path, w in plain[f"{arch}/grads"].items():
             err = np.linalg.norm(got[f"{arch}/grad/{path}"] - w)
             assert err <= 1e-5 * np.linalg.norm(w) + 1e-12, (arch, path)
+
+
+_DECODE_RANK_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.checkpoint import load_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.launch import steps as ST
+from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                         distribute, layout_specs,
+                                         shard_params)
+from repro_torch.models import model as M
+from repro_torch.models.shardctx import activation_sharding
+rank, d = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+toks = torch.from_numpy(np.load(f"{d}/tokens.npy"))
+B, P, N = toks.shape[0], int(sys.argv[4]), toks.shape[1]
+tb = NamedSharding(mesh, batch_spec(mesh, B, 1))
+out = {}
+for i, arch in enumerate(sys.argv[3].split(",")):
+    cfg = get_config(arch).reduced()
+    params = load_checkpoint(d, i, M.init_params(cfg, seed=0, device="cpu"))
+    with activation_sharding(layout_specs(cfg, mesh, B)), \
+            implicit_replication():
+        dp = distribute(params, shard_params(params, mesh, cfg, serving=True))
+        logits, cache = ST.make_prefill_step(cfg, N)(
+            dp, distribute(toks[:, :P], tb))
+        out[f"{arch}/{P}"] = logits.full_tensor().numpy()
+        for t in range(P, N):
+            logits, cache = ST.make_serve_step(cfg)(
+                dp, cache, distribute(toks[:, t:t + 1], tb), t)
+            out[f"{arch}/{t + 1}"] = logits.full_tensor().numpy()
+x = distribute(toks, tb)
+for k in range(2):
+    out[f"microbatch/{k}"] = ST.microbatch(x, 2, k).full_tensor().numpy()
+if rank == 0:
+    np.savez(f"{d}/out.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def test_sharded_decode_and_microbatches_on_four_gloo_ranks(tmp_path):
+    """Four gloo ranks on a 2x2 CPU mesh, serving layout, hooks live:
+    reduced gemma2-2b (a decode step's keys split over the model axis, its
+    softmax reduced across the split), mamba2-130m (the state update split
+    over each head's dims) and mixtral-8x7b (MoE): a prefill of 12 tokens
+    and 4 decode steps, every step's logits within 1e-5 relative
+    (max|d| / max|ref|) of the unsharded port.  And the microbatches of a
+    sharded batch: each the reference's contiguous block of rows."""
+    from repro_torch.checkpoint import save_checkpoint
+    archs, P, N = ("gemma2-2b", "mamba2-130m", "mixtral-8x7b"), 12, 16
+    toks = np.random.default_rng(5).integers(0, 512, (4, N)).astype(np.int32)
+    np.save(tmp_path / "tokens.npy", toks)
+    plain = {}
+    for i, arch in enumerate(archs):
+        cfg = get_config(arch).reduced()
+        jp = JM.init_params(j_get_config(arch).reduced(),
+                            jax.random.PRNGKey(10 + i))
+        params = M.params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                     "cpu")
+        save_checkpoint(str(tmp_path), i, params)
+        t = torch.from_numpy(toks)
+        logits, cache = ST.make_prefill_step(cfg, N)(params, t[:, :P])
+        plain[f"{arch}/{P}"] = logits.numpy()
+        for s in range(P, N):
+            logits, cache = ST.make_serve_step(cfg)(params, cache,
+                                                    t[:, s:s + 1], s)
+            plain[f"{arch}/{s + 1}"] = logits.numpy()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [subprocess.Popen([sys.executable, "-c", _DECODE_RANK_SCRIPT,
+                               str(r), str(tmp_path), ",".join(archs),
+                               str(P)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    got = np.load(tmp_path / "out.npz")
+    for key, want in plain.items():
+        rel = float(np.abs(got[key] - want).max() / np.abs(want).max())
+        assert rel < 1e-5, (key, rel)
+    # 4 rows over the 2-way data axis: microbatch k is rows [2k, 2k + 2),
+    # as the reference splits the batch
+    np.testing.assert_array_equal(got["microbatch/0"], toks[[0, 1]])
+    np.testing.assert_array_equal(got["microbatch/1"], toks[[2, 3]])
+
+
+_MICROBATCH_RANK_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.checkpoint import load_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.launch import steps as ST
+from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                         distribute, layout_specs,
+                                         leaves_with_path, shard_params)
+from repro_torch.models import model as M
+from repro_torch.models.shardctx import activation_sharding
+from repro_torch.training.optim import AdamWConfig, adamw_init
+rank, d, arch = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+cfg = get_config(arch).reduced()
+params = load_checkpoint(d, 0, M.init_params(cfg, seed=0, device="cpu"))
+toks = torch.from_numpy(np.load(f"{d}/tokens.npy"))
+B = toks.shape[0]
+tb = NamedSharding(mesh, batch_spec(mesh, B, 1))
+out = {}
+with activation_sharding(layout_specs(cfg, mesh, B)), \
+        implicit_replication():
+    dp = distribute(params, shard_params(params, mesh, cfg))
+    batch = {"tokens": distribute(toks, tb), "labels": distribute(toks, tb)}
+    loss, _, grads = ST.loss_and_grads(dp, cfg, batch, microbatches=2)
+    out["loss"] = np.asarray(float(loss.full_tensor()))
+    for path, g in leaves_with_path(grads):
+        out[f"grad/{path}"] = g.full_tensor().numpy()
+    opt = AdamWConfig()
+    new, _, step_loss, _ = ST.make_train_step(cfg, opt, microbatches=2)(
+        dp, adamw_init(dp, opt), batch)
+    out["step_loss"] = np.asarray(float(step_loss.full_tensor()))
+    for path, w in leaves_with_path(new):
+        out[f"param/{path}"] = w.full_tensor().numpy()
+if rank == 0:
+    np.savez(f"{d}/out.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def test_microbatched_train_step_on_four_gloo_ranks(tmp_path):
+    """Reduced mixtral-8x7b, 4 rows in 2 microbatches, the FSDP layout on
+    a 2x2 gloo mesh with the hooks live: the loss and every gradient leaf
+    of ``loss_and_grads(microbatches=2)`` within 1e-5 (relative L2) of the
+    unsharded port's, and ``make_train_step(microbatches=2)``'s loss and
+    updated parameters likewise.  The Switch aux loss is a product of two
+    means over a microbatch's tokens, so it holds the sharded step to the
+    reference's rows in each microbatch."""
+    from repro_torch.checkpoint import save_checkpoint
+    arch = "mixtral-8x7b"
+    cfg = get_config(arch).reduced()
+    toks = np.random.default_rng(7).integers(0, 512, (4, 16)).astype(
+        np.int32)
+    np.save(tmp_path / "tokens.npy", toks)
+    jp = JM.init_params(j_get_config(arch).reduced(), jax.random.PRNGKey(4))
+    params = M.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    save_checkpoint(str(tmp_path), 0, params)
+    t = torch.from_numpy(toks)
+    batch = {"tokens": t, "labels": t}
+    loss, _, grads = ST.loss_and_grads(params, cfg, batch, microbatches=2)
+    want = {"loss": float(loss)}
+    want.update({f"grad/{p}": g.numpy() for p, g in leaves_with_path(grads)})
+    opt = AdamWConfig()
+    new, _, step_loss, _ = ST.make_train_step(cfg, opt, microbatches=2)(
+        params, adamw_init(params, opt), batch)
+    want["step_loss"] = float(step_loss)
+    want.update({f"param/{p}": w.numpy() for p, w in leaves_with_path(new)})
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [subprocess.Popen([sys.executable, "-c", _MICROBATCH_RANK_SCRIPT,
+                               str(r), str(tmp_path), arch], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    got = np.load(tmp_path / "out.npz")
+    for key, w in want.items():
+        w = np.asarray(w)
+        err = np.linalg.norm(got[key] - w)
+        assert err <= 1e-5 * np.linalg.norm(w) + 1e-12, (key, err)

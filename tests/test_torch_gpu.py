@@ -654,10 +654,10 @@ def card_mesh():
 
 def _on_card_mesh(mesh, cfg, params, serving, fn, B):
     from torch.distributed.tensor.experimental import implicit_replication
-    from repro_torch.launch.sharding import (activation_specs, distribute,
+    from repro_torch.launch.sharding import (distribute, layout_specs,
                                              shard_params)
     from repro_torch.models.shardctx import activation_sharding
-    with activation_sharding(activation_specs(cfg, mesh, B)), \
+    with activation_sharding(layout_specs(cfg, mesh, B)), \
             implicit_replication():
         return fn(distribute(params, shard_params(params, mesh, cfg,
                                                   serving=serving)))

@@ -39,8 +39,8 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.sharding import (NamedSharding,  # noqa: E402
-                                         activation_specs, batch_spec,
-                                         distribute, shard_cache,
+                                         batch_spec, distribute,
+                                         layout_specs, shard_cache,
                                          shard_params)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.shardctx import activation_sharding  # noqa: E402
@@ -180,7 +180,7 @@ def main():
             t0 = time.time()
             Heal.refusals = []
             try:
-                with activation_sharding(activation_specs(cfg, mesh, B)), \
+                with activation_sharding(layout_specs(cfg, mesh, B)), \
                         implicit_replication(), \
                         Heal() if args.heal else LastOp():
                     fn()
