@@ -34,15 +34,22 @@ Phases (any failure exits non-zero before the last line):
   5. on a runtime over the same weights, run the unfused hop (quantize +
      dequantize kernels) and the standalone probe (semantic-probe
      kernel), check the logits against the monolithic forward, time one
-     steady request, profile where its device time goes, and diff the
-     kernel-name histograms of two more profiles of it;
+     steady request, whose segments are ``core.jit``'s CUDA graphs (the
+     reference's ``jax.jit``): its logits against the bare segment
+     functions' (bit-equal, or within JIT_RTOL), no capture over the 13
+     timed and profiled requests, one graph replay a segment, host
+     launches from the counters and the eager request's kernel nodes;
+     profile where its device time goes, and diff the kernel-name
+     histograms of two more profiles of it;
   6. phases 4 and 5 on full-width mamba2-130m (24 layers);
   7. phases 4 and 5 on full-width mixtral-8x7b cut to 4 of its 32 layers
      (the 32 take ~187 GB in fp32, more than one card holds);
   8. greedy ``generate`` of 32 tokens after a 64-token prompt on that
      mixtral (dropless), full-width gemma2-2b and mamba2-130m: every token
-     the forward's argmax (or a near-tie), decode ms/token beside the
-     weight-bytes bound;
+     the forward's argmax (or a near-tie), decode ms/token through a
+     jitted step (one capture for the 31 steps; its logits against the
+     bare step's) and through the bare step, beside the weight-bytes
+     bound;
   9. the three-tier end -> edge -> cloud path of ``examples/edge_tier.py``
      on full-width mamba2-130m (the planner's cuts 3 and 12 of 24 groups,
      4-bit hops): sync and async engines whose ``classify`` runs
@@ -51,8 +58,8 @@ Phases (any failure exits non-zero before the last line):
      kernel) and two tenants under wdrr, 24 requests each, with equal
      decisions across engines and against each tenant's solo run; every
      hop bit-equal to the plain versions, the (8, 8)-bit split within
-     0.05 of the monolithic forward, and one steady request timed and
-     profiled; then the engines on full-width gemma2-2b at its 6-bit plan
+     0.05 of the monolithic forward, and one steady request measured as
+     in phase 5; then the engines on full-width gemma2-2b at its 6-bit plan
      (no kernel there: 6-bit hops run the plain versions);
   10. the two-pod pipeline (``make_collab_pipeline_step``, 8 bits) on
      full-width qwen3-14b in bf16, the pods on two CUDA streams, at the
@@ -75,9 +82,11 @@ Phases (any failure exits non-zero before the last line):
      the 4-layer gemma2-2b in the FSDP layout: loss bit-equal, gradients
      within 1e-6; (b) in a subprocess, the dry-run of gemma2-2b train_4k
      and mixtral-8x7b decode_32k on the 16x16 mesh of a fake 256-rank
-     group: per device flops, HBM and collective bytes, roofline terms,
-     and the flops, collective bytes and memory against the reference's
-     own dry-run of the same pairs (constants made where JAX is): at most
+     group, and beside it llama4-scout decode_32k on the 2x16x16 mesh
+     (``tools/dryrun_vs_reference.py --side port``, 512 fake ranks): per
+     device flops, HBM and collective bytes, roofline terms, and the
+     flops, collective bytes and memory against the reference's own
+     dry-run of the same pairs (constants made where JAX is): at most
      1.3x, 2x and 2x; (c) beside (b), in a subprocess, ``tools/dtensor_probe.py``: the
      reduced train steps of jamba, llama4, mamba2, mixtral and qwen3 (B,
      S = 4, 32, two microbatches of 2 rows, which do not divide the
@@ -93,7 +102,9 @@ Exits with code 2 and prints no result when CUDA is not available or
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -117,6 +128,10 @@ TOL = dict(atol=1e-5, rtol=1e-4)
 # forward's top-2 logits are this close, relative to the row's largest
 # |logit| (decode and forward run fp32 GEMMs of other shapes)
 GEN_TIE_RTOL = 1e-3
+# a jitted request's or decode step's logits against the eager
+# functions' on the same inputs: bit-equal, or within this (max |d| over
+# max |ref|) where a GEMM under capture picks another cuBLAS algorithm
+JIT_RTOL = 1e-6
 # split vs monolithic logits (relative L2 error) by bit width: phase 5's
 # bounds on gemma2-2b, and for phases 6-7 the 8-bit bound scaled by the
 # quantum ratio 255/15 at 4 bits.  The logits' error grows with the
@@ -590,7 +605,7 @@ def graph_node_types(torch, fn):
 
 def profile_requests(torch, request, n):
     """Device busy time per request and the top kernels by device time.
-    Returns (busy ms per request, idle share, kernel launches per
+    Returns (busy ms per request, idle share, kernel records per
     request), or Nones when the profiler saw no device time."""
     rows, wall = device_profile(torch, request, n)
     busy = sum(r[2] for r in rows)
@@ -601,7 +616,7 @@ def profile_requests(torch, request, n):
     log(f"profile ({n} requests, profiler on): device busy {busy:.3f} "
         f"ms/request of {wall:.3f} ms wall (idle share "
         f"{1 - busy / wall:.3f}); {launches:.0f} kernel "
-        f"launches/request")
+        f"records/request")
     for name, count, ms in rows[:8]:
         log(f"  {ms:8.3f} ms/request  x{count:6.1f}  {name[:90]}")
     return round(busy, 4), round(1 - busy / wall, 4), round(launches, 1)
@@ -675,9 +690,9 @@ def runtime_check(torch, cfg, params, bounds):
     split against monolithic logits at 4 and 8 bits within ``bounds``;
     the hop's packet and dequantized values against the plain versions on
     the same boundary activation; one steady request (fused end step +
-    cloud step) timed and profiled, and profiled twice more to diff the
-    kernel-name histograms.  Returns (launches, request ms, device busy ms
-    or None, the profiler drift)."""
+    cloud step) through the jitted segments by ``steady_request``, and
+    profiled twice more to diff the kernel-name histograms.  Returns
+    (launches, the steady request's numbers, the profiler drift)."""
     from repro_torch.core.collab import CollabRuntime
     from repro_torch.core.costs import (A6000_SERVER, JETSON_NX, WIFI_5GHZ,
                                         transformer_graph)
@@ -720,26 +735,18 @@ def runtime_check(torch, cfg, params, bounds):
     check_best(torch, best, pbest, psims, "probe")
     check_hop(torch, rt, toks, mono)
 
-    # one steady request on the serve path: fused end step + cloud step
-    def request():
-        pkt, _ = rt.end_step_fused(toks, centers)
-        return rt.cloud_step(pkt)
+    # one steady request on the serve path: fused end step + cloud step,
+    # through the jitted segments and through their bare functions
+    eager = eager_twin(rt)
 
-    with torch.no_grad():
-        for _ in range(3):
-            request()
-        torch.cuda.synchronize()
-        per = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            request()
-            torch.cuda.synchronize()
-            per.append(time.perf_counter() - t0)
-    req_ms = statistics.median(per) * 1e3
-    log(f"steady request (end segment + fused boundary + dequantize + "
-        f"cloud segment + head): {req_ms:.2f} ms median of 10")
-    busy = profile_requests(torch, request, 3)[0]
-    return launches, req_ms, busy, profile_drift(torch, request, 3)
+    def request(r=rt):
+        pkt, _ = r.end_step_fused(toks, centers)
+        return r.cloud_step(pkt)
+
+    log("steady request (end segment + fused boundary + dequantize + "
+        "cloud segment + head):")
+    res = steady_request(torch, rt, request, lambda: request(eager))
+    return launches, res, profile_drift(torch, request, 3)
 
 
 def boundary_activation(rt, toks, hop):
@@ -817,13 +824,20 @@ def decode_weight_bytes(cfg, params, M) -> int:
 
 
 def generation_check(torch, cfg, params, prompt_len=64, new=32):
-    """``generate`` greedy from a seeded prompt; every new token is the
-    argmax of the forward on the generated sequence (the forward is
-    causal, so its logits at position i are those of the prefix up to i),
-    or a near-tie: the forward's top-2 logits within GEN_TIE_RTOL of the
-    row's largest |logit|.  Then the decode steps alone, timed one by one,
-    and their logits against the forward on their own sequence.  Returns
-    (decode ms/token median, bound ms, all-weights bound ms)."""
+    """``generate`` greedy from a seeded prompt (its prefill and decode
+    step jitted); every new token is the argmax of the forward on the
+    generated sequence (the forward is causal, so its logits at position i
+    are those of the prefix up to i), or a near-tie: the forward's top-2
+    logits within GEN_TIE_RTOL of the row's largest |logit|.  Then the
+    decode steps one by one, each timed through a jitted step (the
+    position a device tensor: one capture serves the 31 steps) and
+    through the bare ``decode_step`` on the same inputs: the jitted
+    logits against the bare ones by ``same_logits``, and all against the
+    forward on their own sequence.  Returns (decode ms/token median
+    jitted, the same eager, bound ms, all-weights bound ms, the jitted
+    logits' difference from the eager ones, and a jitted step's device
+    busy ms and idle share under torch.profiler)."""
+    from repro_torch.core.jit import jit
     from repro_torch.models import model as M
     from repro_torch.serving import generate
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -850,31 +864,49 @@ def generation_check(torch, cfg, params, prompt_len=64, new=32):
             f"differ from the forward's argmax away from a near-tie"
 
         lg, cache = M.prefill(params, cfg, prompt, prompt_len + new)
-        seq, step_logits, per = [prompt], [], []
+        step = jit(functools.partial(M.decode_step, cfg=cfg))
+        seq, step_logits, eager_logits, per, eager_per = \
+            [prompt], [], [], [], []
         for t in range(new - 1):
             nxt = torch.argmax(lg, dim=-1)[:, None].to(prompt.dtype)
             seq.append(nxt)
+            pos = torch.full((), prompt_len + t, dtype=torch.int32,
+                             device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = M.decode_step(params, cfg, cache, nxt,
-                                      prompt_len + t)
+            elg, _ = M.decode_step(params, cfg, cache, nxt, prompt_len + t)
+            torch.cuda.synchronize()
+            eager_per.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache=cache, inputs=nxt, pos=pos)
             torch.cuda.synchronize()
             per.append(time.perf_counter() - t0)
             step_logits.append(lg)
+            eager_logits.append(elg)
+        assert (step.captures, step.replays) == (1, new - 1), \
+            (step.captures, step.replays)
+        # where a jitted step's time goes: device busy, idle share
+        busy, idle, _ = profile_requests(torch, lambda: step(
+            params, cache=cache, inputs=nxt, pos=pos), 3)
+        step_logits = torch.cat(step_logits)
+        jrel = same_logits(torch, step_logits, torch.cat(eager_logits),
+                           f"{new - 1} jitted decode steps")
         seq = torch.cat(seq, dim=1)
         h, _, _ = M.forward(params, cfg, seq)
         want = M._lm_head(params, cfg, h[0, prompt_len:])
-        rel = rel_err(torch, torch.cat(step_logits), want)
+        rel = rel_err(torch, step_logits, want)
     assert rel < 1e-3, f"decode logits vs forward rel err {rel}"
     ms = statistics.median(per) * 1e3
+    eager_ms = statistics.median(eager_per) * 1e3
     bound = decode_weight_bytes(cfg, params, M) / HBM_BYTES_PER_S * 1e3
     every = M.param_count(params) * 4 / HBM_BYTES_PER_S * 1e3
     log(f"generate {new} tokens after {prompt_len}: {gen_s:.3f}s; "
         f"{int(flips.sum())} near-tie flips; decode {ms:.3f} ms/token "
-        f"(median of {new - 1}) vs weight-bytes bound {bound:.3f} ms "
-        f"(all weights {every:.3f} ms); decode vs forward logits rel err "
-        f"{rel:.3g} (< 1e-3)")
-    return ms, bound, every
+        f"jitted ({step.captures} capture, {step.replays} replays), "
+        f"{eager_ms:.3f} eager (medians of {new - 1}) vs weight-bytes "
+        f"bound {bound:.3f} ms (all weights {every:.3f} ms); decode vs "
+        f"forward logits rel err {rel:.3g} (< 1e-3)")
+    return ms, eager_ms, bound, every, jrel, busy, idle
 
 
 # ------------------------------------------------------------ phase 9
@@ -1080,12 +1112,61 @@ def three_tier_check(torch, cfg, params, device="cuda", executor=True):
     return r["launches"], result, rt, toks
 
 
-def time_request(torch, request):
-    """Median wall ms of 10 steady calls of ``request`` (3 warm-up), then
-    its device busy, idle share and launches under torch.profiler."""
+def eager_twin(rt):
+    """``rt`` with its segment functions called bare, not jitted: the
+    eager path that the CUDA graphs are held to."""
+    twin = copy.copy(rt)
+    twin._seg_fns = [f.fn for f in rt._seg_fns]
+    return twin
+
+
+def jit_counts(fns):
+    """Captures, replays and copies summed over the distinct jitted
+    functions in ``fns``."""
+    fns = list({id(f): f for f in fns}.values())
+    return tuple(sum(getattr(f, k) for f in fns)
+                 for k in ("captures", "replays", "copies"))
+
+
+def same_logits(torch, got, want, what):
+    """``got`` bit-equal to ``want``, or within JIT_RTOL of it (max |d|
+    over max |want|); returns the relative difference."""
+    if torch.equal(got, want):
+        log(f"  {what}: bit-equal to the eager functions'")
+        return 0.0
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"  {what}: {rel:.3g} relative from the eager functions' (<= "
+        f"{JIT_RTOL}; cause: a GEMM under capture runs on the capture "
+        f"stream's cuBLAS handle, which may pick another algorithm)")
+    assert rel <= JIT_RTOL, f"{what}: {rel} from the eager functions'"
+    return rel
+
+
+def steady_request(torch, rt, request, eager_request):
+    """A steady ``request`` of ``rt`` (returning logits) through its
+    jitted segments: the logits against ``eager_request``'s (the same
+    request through the bare segment functions) by ``same_logits``; one
+    graph replay a segment; host launches a request from the counters
+    (graph replays, the jit's input copies and output clones, and the
+    boundary kernels' launches); the kernel nodes of the eager request
+    captured whole (the device work the graphs replay); the median wall
+    ms of 10 requests (3 warm-up), then device busy and idle share under
+    torch.profiler over 3.  The jit's captures must not move over the 10
+    timed and 3 profiled requests."""
+    from repro_torch.kernels import _build as KB
     with torch.no_grad():
         for _ in range(3):
-            request()
+            got = request()
+        rel = same_logits(torch, got, eager_request(), "jitted request")
+        torch.cuda.synchronize()
+        caps, reps, cops = jit_counts(rt._seg_fns)
+        kern = sum(KB.LAUNCHES.values())
+        request()
+        _, reps1, cops1 = jit_counts(rt._seg_fns)
+        replays = reps1 - reps
+        host = replays + cops1 - cops + sum(KB.LAUNCHES.values()) - kern
+        assert replays == rt.n_segments, \
+            f"{replays} graph replays a request, {rt.n_segments} segments"
         torch.cuda.synchronize()
         per = []
         for _ in range(10):
@@ -1094,10 +1175,23 @@ def time_request(torch, request):
             torch.cuda.synchronize()
             per.append(time.perf_counter() - t0)
     req_ms = statistics.median(per) * 1e3
-    log(f"  {req_ms:.2f} ms median of 10")
-    busy, idle, n = profile_requests(torch, request, 3)
+    busy, idle, records = profile_requests(torch, request, 3)
+    assert jit_counts(rt._seg_fns)[0] == caps, \
+        "the steady requests captured again"
+    with torch.no_grad():
+        nodes = sum(1 for t in graph_node_types(torch, eager_request)
+                    if t == 0)
+    log(f"  {req_ms:.2f} ms median of 10; {caps} captures, unchanged over "
+        f"13 requests; {replays} graph replays a request; host launches a "
+        f"request {host} (counters); kernel nodes a request {nodes} (the "
+        f"eager request captured whole) + {cops1 - cops} jit copies")
     return {"request_ms": req_ms, "request_device_busy_ms": busy,
-            "idle_share": idle, "launches_per_request": n}
+            "idle_share": idle, "profiler_kernel_records": records,
+            "host_launches_per_request": host,
+            "kernel_nodes_per_request": nodes,
+            "jit_copies_per_request": cops1 - cops,
+            "graph_replays_per_request": replays, "captures": caps,
+            "jit_vs_eager_rel": rel}
 
 
 # ------------------------------------------------------------ phase 10
@@ -1339,6 +1433,17 @@ REFERENCE_DRYRUN = {
                                 "coll_bytes": 211417640.0,
                                 "memory_bytes": 18676442948.0},
 }
+# Likewise the reference's llama4-scout decode_32k on the 2x16x16 mesh
+# (512 fake host devices), by the same command with --multi-pod: the pair
+# whose ("pod", "data")-sharded weights DTensor gathered in two
+# collectives (6.10x these collective bytes) before ``models/shardctx.py``
+# gathered them in one over the flattened group.  Phase 12 (b) runs the
+# port's side through the tool, with the card hidden, as on any host.
+REFERENCE_DRYRUN_MULTI_POD = {
+    "llama4-scout-17b-a16e decode_32k": {"flops": 250164183040.0,
+                                         "coll_bytes": 1199518864.0,
+                                         "memory_bytes": 6688802620.0},
+}
 # the port's figure over the reference's, at most
 DRYRUN_TARGETS = {"flops": 1.3, "coll_bytes": 2.0, "memory_bytes": 2.0}
 _DRYRUN = r"""
@@ -1454,18 +1559,46 @@ def dtensor_train_check(torch, M, mesh):
 
 def dryrun_check():
     """``launch.dryrun`` of DRYRUN_PAIRS on the 16x16 mesh of a fake
-    256-rank group, in a subprocess of its own: per device the flops, HBM
-    bytes, collective bytes by kind, the roofline terms and the trace
-    seconds; each pair's flops, collective bytes and memory held to
-    DRYRUN_TARGETS against REFERENCE_DRYRUN."""
+    256-rank group, in a subprocess of its own, and beside it
+    ``tools/dryrun_vs_reference.py --side port --multi-pod`` on the pairs
+    of REFERENCE_DRYRUN_MULTI_POD (a fake 512-rank group): per device the
+    flops, HBM bytes, collective bytes by kind, the roofline terms and
+    the trace seconds; each pair's flops, collective bytes and memory
+    held to DRYRUN_TARGETS against the reference's."""
+    import tempfile
     env = dict(os.environ, PYTHONPATH=SRC)
-    r = subprocess.run([sys.executable, "-c", _DRYRUN,
-                        json.dumps(DRYRUN_PAIRS)], env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, f"the dry-run failed: {r.stderr[-3000:]}"
-    reps = json.loads(r.stdout.strip().splitlines()[-1])
-    out = {}
-    for pair, rep in reps.items():
+    single = subprocess.Popen([sys.executable, "-c", _DRYRUN,
+                               json.dumps(DRYRUN_PAIRS)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "multi_pod.json")
+        multi = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "dryrun_vs_reference.py"),
+             *[p.replace(" ", ":") for p in REFERENCE_DRYRUN_MULTI_POD],
+             "--multi-pod", "--side", "port", "--json", path],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            out, err = single.communicate(timeout=300)
+            assert single.returncode == 0, f"the dry-run failed: {err[-3000:]}"
+            mout, merr = multi.communicate(timeout=300)
+            assert multi.returncode == 0, \
+                f"the multi-pod dry-run failed: {mout[-2000:]} {merr[-2000:]}"
+            with open(path) as f:
+                mreps = json.load(f)
+        finally:
+            for proc in (single, multi):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    reps = [(pair, rep, REFERENCE_DRYRUN[pair]) for pair, rep in
+            json.loads(out.strip().splitlines()[-1]).items()]
+    reps += [(pair, mreps[pair]["port"],
+              REFERENCE_DRYRUN_MULTI_POD[pair]) for pair in mreps]
+    results = {}
+    for pair, rep, reference in reps:
         roof, coll = rep["roofline"], rep["collectives"]
         log(f"  {pair} on {rep['mesh']} ({rep['devices']} devices, "
             f"{'serving' if rep['serving_layout'] else 'FSDP'} layout), per "
@@ -1481,17 +1614,17 @@ def dryrun_check():
             math.isfinite(v) for v in coll.values()), rep
         got = {"flops": roof["flops"], "coll_bytes": roof["coll_bytes"],
                "memory_bytes": rep["memory"]["total_nonalias_bytes"]}
-        ratio = {k: got[k] / REFERENCE_DRYRUN[pair][k] for k in got}
+        ratio = {k: got[k] / reference[k] for k in got}
         log(f"    against the reference's dry-run: " + ", ".join(
-            f"{k} {got[k]:.4g} / {REFERENCE_DRYRUN[pair][k]:.4g} = "
+            f"{k} {got[k]:.4g} / {reference[k]:.4g} = "
             f"{ratio[k]:.3f}x (<= {DRYRUN_TARGETS[k]})" for k in got))
         assert all(ratio[k] <= DRYRUN_TARGETS[k] for k in ratio), \
             f"{pair} outside the targets against the reference: {ratio}"
-        out[pair] = {k: rep[k] for k in ("trace_s", "memory", "cost",
-                                         "collectives", "roofline",
-                                         "useful_flop_frac")}
-        out[pair]["against_reference"] = ratio
-    return out
+        results[f"{pair} {rep['mesh']}"] = dict(
+            {k: rep[k] for k in ("trace_s", "memory", "cost", "collectives",
+                                 "roofline", "useful_flop_frac")},
+            against_reference=ratio)
+    return results
 
 
 # phase 12 (c): the reduced train steps on a fake 4x4 mesh
@@ -1609,12 +1742,11 @@ def main() -> int:
     add_launches(serve_launches)
 
     log("== phase 5: unfused hop and standalone probe on the same weights")
-    second_launches, req_ms, busy_ms, drift = runtime_check(
-        torch, cfg, params, SPLIT_BOUND)
+    second_launches, res, drift = runtime_check(torch, cfg, params,
+                                                SPLIT_BOUND)
     add_launches(second_launches)
-    results["gemma2-2b"] = {"serve_wall_s": wall, "request_ms": req_ms,
-                            "request_device_busy_ms": busy_ms,
-                            "profiler_drift": drift}
+    results["gemma2-2b"] = dict(res, serve_wall_s=wall,
+                                profiler_drift=drift)
 
     for phase, name, cfg in (
             (6, "mamba2-130m", get_config("mamba2-130m")),
@@ -1627,13 +1759,11 @@ def main() -> int:
         params = init_params(torch, M, cfg)
         lw, wall = serve_check(torch, name, params)
         add_launches(lw)
-        lr, req_ms, busy_ms, drift = runtime_check(torch, cfg, params,
-                                                   SPLIT_BOUND_SCALED)
+        lr, res, drift = runtime_check(torch, cfg, params,
+                                       SPLIT_BOUND_SCALED)
         add_launches(lr)
-        results[name] = {"layers": cfg.num_layers, "serve_wall_s": wall,
-                         "request_ms": req_ms,
-                         "request_device_busy_ms": busy_ms,
-                         "profiler_drift": drift}
+        results[name] = dict(res, layers=cfg.num_layers, serve_wall_s=wall,
+                             profiler_drift=drift)
 
     log("== phase 8: greedy generation, 32 tokens after 64")
     # phase 7's mixtral weights first (dropless, as tests/test_decode.py
@@ -1645,9 +1775,15 @@ def main() -> int:
         log(f"  {name} ({gcfg.num_layers} layers)")
         if params is None:
             params = init_params(torch, M, gcfg)
-        ms, bound, every = generation_check(torch, gcfg, params)
-        results[name].update(decode_ms_per_token=ms, decode_bound_ms=bound,
-                             decode_all_weights_ms=every)
+        ms, eager_ms, bound, every, jrel, busy, idle = generation_check(
+            torch, gcfg, params)
+        results[name].update(decode_ms_per_token=ms,
+                             decode_eager_ms_per_token=eager_ms,
+                             decode_bound_ms=bound,
+                             decode_all_weights_ms=every,
+                             decode_jit_vs_eager_rel=jrel,
+                             decode_device_busy_ms=busy,
+                             decode_idle_share=idle)
         params = None
         torch.cuda.empty_cache()
 
@@ -1663,7 +1799,9 @@ def main() -> int:
     add_launches(lt)
     log("steady three-tier request (rt.run: end segment + quantize + edge "
         "segment + dequantize/quantize + cloud segment + dequantize + head)")
-    res.update(time_request(torch, lambda: rt.run(toks)))
+    eager = eager_twin(rt)
+    res.update(steady_request(torch, rt, lambda: rt.run(toks)[0],
+                              lambda: eager.run(toks)[0]))
     results["three-tier mamba2-130m"] = res
     params = rt = None
     torch.cuda.empty_cache()
@@ -1726,8 +1864,9 @@ def main() -> int:
     lrel, gworst = dtensor_train_check(torch, M, mesh)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
-    log(" (b) the dry-run on the 16x16 mesh and (c) the reduced train "
-        "steps on a fake 4x4 mesh (two subprocesses side by side)")
+    log(" (b) the dry-run on the 16x16 and 2x16x16 meshes and (c) the "
+        "reduced train steps on a fake 4x4 mesh (three subprocesses side "
+        "by side)")
     probe = probe_start()
     try:
         dryrun = dryrun_check()

@@ -17,16 +17,23 @@ Two realizations:
      dequantized (K2) on the way in.  The pods are two ranks of a
      ``torch.distributed`` group, or two CUDA streams of one card
      (``PodMesh``).
+
+``CollabRuntime``'s segment functions are ``core.jit``'ed, as the
+reference ``jax.jit``s them: on the card each is one CUDA graph a shape,
+and the boundary kernels (dequantize before a segment, quantize or the
+fused boundary pass after it) launch between the graphs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.jit import jit
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -101,6 +108,25 @@ class BoundaryProbe:
     sims: torch.Tensor  # (B, L) similarity degrees in [0, 1] (Eq. 8)
 
 
+# per-segment forwards (the reference's ``CollabRuntime`` methods)
+def _first_forward(cfg: ModelConfig, p, inputs):
+    B, S = inputs.shape[:2]
+    h = M._embed(p, cfg, inputs)
+    return M.run_groups(p["groups"], h, cfg, M.positions_for(B, S, h.device))
+
+
+def _mid_forward(cfg: ModelConfig, p, h):
+    B, S = h.shape[:2]
+    return M.run_groups(p["groups"], h, cfg, M.positions_for(B, S, h.device))
+
+
+def _last_forward(cfg: ModelConfig, p, h):
+    B, S = h.shape[:2]
+    h = M.run_groups(p["groups"], h, cfg, M.positions_for(B, S, h.device))
+    h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
+    return M._lm_head(p, cfg, h[:, -1])
+
+
 class CollabRuntime:
     """Staged executor for one model + (multi-)partition decision.
 
@@ -124,10 +150,13 @@ class CollabRuntime:
         self.default_bits_per_hop = bits
         self.default_bits = bits[0]
         self.p_segments = split_params_multi(params, cfg, self.cuts)
-        self._seg_fns = (
-            [self._first_forward]
-            + [self._mid_forward] * (self.n_hops - 1)
-            + [self._last_forward])
+        # the jitted functions hold the config, not the runtime: a dropped
+        # runtime is freed at once with its CUDA graphs, not later by the
+        # cycle collector, which may run during another capture and would
+        # spoil it by freeing a graph there
+        first, mid, last = (jit(functools.partial(f, cfg)) for f in (
+            _first_forward, _mid_forward, _last_forward))
+        self._seg_fns = [first] + [mid] * (self.n_hops - 1) + [last]
         self._probe = KOPS.probe_cache
 
     @property
@@ -154,27 +183,6 @@ class CollabRuntime:
     @property
     def _cloud_fn(self):
         return self._seg_fns[-1]
-
-    # ---- per-segment forwards
-    def _first_forward(self, p, inputs):
-        cfg = self.cfg
-        B, S = inputs.shape[:2]
-        h = M._embed(p, cfg, inputs)
-        return M.run_groups(p["groups"], h, cfg,
-                            M.positions_for(B, S, h.device))
-
-    def _mid_forward(self, p, h):
-        B, S = h.shape[:2]
-        return M.run_groups(p["groups"], h, self.cfg,
-                            M.positions_for(B, S, h.device))
-
-    def _last_forward(self, p, h):
-        cfg = self.cfg
-        B, S = h.shape[:2]
-        h = M.run_groups(p["groups"], h, cfg,
-                         M.positions_for(B, S, h.device))
-        h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
-        return M._lm_head(p, cfg, h[:, -1])
 
     def _quantize(self, h, hop: int, bits: Optional[int]) -> WirePacket:
         bits = bits or self.default_bits_per_hop[hop]

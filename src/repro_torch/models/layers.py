@@ -11,6 +11,7 @@ fused library attention.  Full-sequence attention is query-chunked over
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Optional, Tuple
 
@@ -62,10 +63,12 @@ def rope_angles(positions, head_dim: int, theta: float,
         # streams [arXiv:2409.12191].  Text-only inputs use identical streams.
         if positions.dim() == 2:  # plain (B,S) text positions -> broadcast
             positions = positions[None].expand((3,) + tuple(positions.shape))
-        sec_id = torch.repeat_interleave(
-            torch.arange(3, device=positions.device),
-            torch.tensor(mrope_sections, device=positions.device),
-            output_size=half)  # (half,)
+        # the stream of each frequency index, (half,), from the section
+        # sizes on the device (a host-to-device copy of them would stop a
+        # CUDA-graph capture)
+        idx = torch.arange(half, device=positions.device)
+        sec_id = sum((idx >= b).long()
+                     for b in itertools.accumulate(mrope_sections[:-1]))
         pos = positions[sec_id]  # (half, ..., S)
         ang = torch.movedim(pos, 0, -1).to(torch.float32) * inv_freq
     else:
@@ -331,12 +334,16 @@ def prefill_to_cache(cfg, spec, k, v, max_seq: int):
             "pos": ring(ppos, 0)}
 
 
-def attention_decode(params, x, cache, pos: int, cfg: ModelConfig,
+def attention_decode(params, x, cache, pos, cfg: ModelConfig,
                      spec: LayerSpec):
-    """One-token decode.  x: (B,1,D); pos: the position of x (an int).
-    Returns the output and a new cache; ``cache`` itself is not changed."""
+    """One-token decode.  x: (B,1,D); pos: the position of x, an int or a
+    0-d int32 tensor on x's device (read on the device only, so a captured
+    step serves every position).  Returns the output and a new cache;
+    ``cache`` itself is not changed."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pos = pos.to(torch.int32) if isinstance(pos, torch.Tensor) else \
+        torch.full((), pos, dtype=torch.int32, device=x.device)
+    positions = pos.reshape(1, 1).expand(B, 1)
     q, k, v = _qkv(params, x, cfg, positions)  # (B,1,·,hd), rope'd at abs pos
     L = cache["k"].shape[1]
     # the new entry goes to slot pos % L by selection, not by an indexed

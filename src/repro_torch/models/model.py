@@ -159,7 +159,7 @@ def _block_full(p, h, cfg: ModelConfig, spec: LayerSpec, positions,
     return h, cache, aux
 
 
-def _block_decode(p, h, cache, pos: int, cfg: ModelConfig, spec: LayerSpec):
+def _block_decode(p, h, cache, pos, cfg: ModelConfig, spec: LayerSpec):
     x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         y, cache = L.attention_decode(p["attn"], x, cache, pos, cfg, spec)
@@ -258,8 +258,11 @@ def _embed(params, cfg: ModelConfig, inputs):
                                 dims=((0, None, None), (None, None, 0)),
                                 out_dims=(0, None, SUM)), "hidden")
     if cfg.scale_embeddings:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
-                             device=h.device)
+        # the scale rounded to h's dtype, as the reference's
+        # jnp.asarray(..., h.dtype), and passed as a number: on the card a
+        # tensor made on the host would be copied to the device, which
+        # stops a CUDA-graph capture of the step (``core.jit``)
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()
     return h
 
 
@@ -449,9 +452,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return tuple(one(spec) for spec in cfg.pattern)
 
 
-def decode_step(params, cfg: ModelConfig, cache, inputs, pos: int):
+def decode_step(params, cfg: ModelConfig, cache, inputs, pos):
     """inputs: (B,1) tokens or (B,1,D) embeds; pos: the position of the
-    input (an int).  Returns (logits (B,V), new cache); ``cache`` itself
+    input, an int or a 0-d int32 tensor (the reference's traced
+    ``jnp.int32``).  Returns (logits (B,V), new cache); ``cache`` itself
     is not changed."""
     h = _embed(params, cfg, inputs)
     groups = params["groups"]

@@ -169,7 +169,7 @@ def _to_spec(x, spec):
     placements = spec_placements(spec, mesh)
     if tuple(x.placements) == placements:
         return x
-    out = x.redistribute(mesh, placements)
+    out = redistribute(x, placements)
     loc = out.to_local()
     if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
         # a shard cut out of a gathered tensor (gloo has no all-to-all, so
@@ -179,6 +179,88 @@ def _to_spec(x, spec):
                                  run_check=False, shape=out.shape,
                                  stride=out.stride())
     return out
+
+
+def _flat_gather_axes(x, placements) -> tuple:
+    """The mesh dims of a redistribution that only makes one tensor dim,
+    sharded evenly over two or more mesh dims, whole on them (an FSDP
+    weight on ("pod", "data")), keeping every other placement; () for
+    any other redistribution."""
+    moved = [m for m, (a, b) in enumerate(zip(x.placements, placements))
+             if a != b]
+    if len(moved) < 2 or any(type(x.placements[m]) is not Shard
+                             or not placements[m].is_replicate()
+                             for m in moved):
+        return ()
+    d = x.placements[moved[0]].dim
+    sharding = [m for m, p in enumerate(x.placements)
+                if isinstance(p, Shard) and p.dim == d]
+    n = math.prod(x.device_mesh.size(m) for m in moved)
+    if sharding != moved or x.shape[d] % n:
+        return ()
+    return tuple(moved)
+
+
+def redistribute(x, placements):
+    """``x.redistribute`` to ``placements`` on its mesh; a tensor dim
+    sharded over several mesh dims that all become whole is gathered in
+    one all-gather over their flattened group (``_FlatGather``)."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    axes = _flat_gather_axes(x, placements)
+    if axes:
+        return _FlatGather.apply(x, axes, placements)
+    return x.redistribute(x.device_mesh, placements)
+
+
+# ``all_gather_tensor`` / ``reduce_scatter_tensor`` in older releases
+_all_gather = getattr(funcol, "all_gather_single", None) or \
+    funcol.all_gather_tensor
+_reduce_scatter = getattr(funcol, "reduce_scatter_single", None) or \
+    funcol.reduce_scatter_tensor
+
+
+class _FlatGather(torch.autograd.Function):
+    """``x`` redistributed to ``placements``, which make its dim ``d``,
+    sharded over the mesh dims ``axes``, whole on them: one all-gather of
+    the local shard over the flattened group of those dims, where
+    DTensor gathers over each dim in turn and the last gather's operand
+    is the others' product times the shard (XLA gathers once over the
+    flattened group).  The backward is one reduce-scatter over the same
+    group: the gradient of a gathered weight is a partial sum over the
+    devices that used it, and the sum becomes their shards."""
+
+    @staticmethod
+    def forward(ctx, x, axes, placements):
+        mesh = x.device_mesh
+        names = tuple(mesh.mesh_dim_names[m] for m in axes)
+        group = mesh[names]._flatten()
+        # DTensor shards a dim over several mesh dims major to minor in
+        # mesh order: device (i, j, ...) holds chunk i*n_j*... + j*... + ...,
+        # which must be its rank in the flattened group, the gather's order
+        me = 0
+        for m in axes:
+            me = me * mesh.size(m) + mesh.get_local_rank(m)
+        assert group.get_local_rank() == me, (me, group.get_local_rank())
+        ctx.mesh, ctx.group, ctx.axes = mesh, group, axes
+        ctx.d = x.placements[axes[0]].dim
+        ctx.in_pl, ctx.out_pl = tuple(x.placements), tuple(placements)
+        loc = funcol.wait_tensor(_all_gather(x.to_local().contiguous(),
+                                             ctx.d, group))
+        return DTensor.from_local(loc, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        pl = tuple(g.placements)
+        if all(pl[m] == Partial() for m in ctx.axes) and all(
+                p == q for m, (p, q) in enumerate(zip(pl, ctx.out_pl))
+                if m not in ctx.axes):
+            loc = funcol.wait_tensor(_reduce_scatter(
+                g.to_local().contiguous(), "sum", ctx.d, ctx.group))
+            return DTensor.from_local(loc, ctx.mesh, ctx.in_pl,
+                                      run_check=False), None, None
+        return g.redistribute(ctx.mesh, ctx.in_pl), None, None
 
 
 def _unviewable(old, new, counts) -> set:
@@ -363,6 +445,8 @@ def on_shards(fn, args, dims, out_dims):
             else a for a in args]
     in_pl = tuple(placements(d) if isinstance(a, DTensor) else None
                   for a, d in zip(args, dims))
+    args = [redistribute(a, p) if p is not None else a
+            for a, p in zip(args, in_pl)]
     grad_pl = tuple(placements(d, Partial()) if isinstance(a, DTensor)
                     else None for a, d in zip(args, dims))
     several = isinstance(out_dims[0], tuple)

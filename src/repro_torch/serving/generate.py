@@ -1,15 +1,17 @@
 """Autoregressive generation on top of prefill + decode_step, mirroring
 ``repro.serving.generate``: the serving substrate's inner loop, greedy or
-temperature sampling.
+temperature sampling, ``core.jit``'ed once per (batch, cache) shape.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch import require_device
+from repro_torch.core.jit import jit
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -39,14 +41,21 @@ def generate(params, cfg: ModelConfig, prompt, max_new_tokens: int,
         probs = torch.softmax(lg.to(torch.float32) / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
+    # the position is a device tensor, as the reference's traced
+    # jnp.int32: one capture of the step serves every position.  The cache
+    # is copied into the step's input buffers each token
+    prefill = jit(functools.partial(M.prefill, cfg=cfg, max_seq=max_seq))
+    step = jit(functools.partial(M.decode_step, cfg=cfg))
     with torch.no_grad():
-        logits, cache = M.prefill(params, cfg, prompt, max_seq)
+        logits, cache = prefill(params, inputs=prompt)
         toks = prompt
         nxt = pick(logits)[:, None].to(prompt.dtype)
+        pos = torch.full((), S0, dtype=torch.int32, device=dev)
         for t in range(max_new_tokens):
             toks = torch.cat([toks, nxt], dim=1)
             if t == max_new_tokens - 1:
                 break
-            logits, cache = M.decode_step(params, cfg, cache, nxt, S0 + t)
+            logits, cache = step(params, cache=cache, inputs=nxt, pos=pos)
+            pos = pos + 1
             nxt = pick(logits)[:, None].to(prompt.dtype)
     return toks

@@ -168,6 +168,40 @@ def test_gemma2_ring_prefill_and_decode_past_the_window_match_jax():
     assert _rel(out, M._lm_head(tp, cfg, h[:, -1])) < 2e-4
 
 
+@pytest.mark.parametrize("arch,S0,MAX", [
+    ("gemma2-2b", 70, 90),  # a ring cache, decoded past its window
+    ("h2o-danube-3-4b", 20, 40), ("mixtral-8x7b", 12, 24),
+    ("mamba2-130m", 12, 24), ("jamba-1.5-large-398b", 12, 24)])
+def test_decode_with_a_tensor_position_equals_the_int_form_and_jax(arch, S0,
+                                                                   MAX):
+    """``decode_step`` with ``pos`` a 0-d int32 tensor (as
+    ``serving.generate`` passes it to the jitted step, and as the
+    reference's ``pos=jnp.int32(...)`` is traced) gives the int form's
+    logits and cache bit for bit, and the JAX package's jitted step's
+    within ``TOL``, at every one of 8 steps."""
+    over = {"sliding_window": 16} if arch.startswith("h2o") else {}
+    cfg = _cfg(arch, **over)
+    jp, tp = _weights(cfg, seed=4)
+    x = _inputs(cfg, 1, S0 + 8, seed=9)
+    _, cache = M.prefill(tp, cfg, _t(x[:, :S0]), MAX)
+    _, jcache = JM.prefill(jp, cfg, jnp.asarray(x[:, :S0]), MAX)
+    tcache = cache
+    jstep = jax.jit(functools.partial(JM.decode_step, cfg=cfg))
+    for t in range(S0, S0 + 8):
+        tok = _t(x[:, t:t + 1])
+        out, cache = M.decode_step(tp, cfg, cache, tok, t)
+        tout, tcache = M.decode_step(tp, cfg, tcache, tok,
+                                     torch.tensor(t, dtype=torch.int32))
+        jout, jcache = jstep(jp, cache=jcache, inputs=jnp.asarray(
+            x[:, t:t + 1]), pos=jnp.int32(t))
+        assert torch.equal(tout, out)
+        for a, b in zip(jax.tree.leaves(jax.tree.map(_np, tcache)),
+                        jax.tree.leaves(jax.tree.map(_np, cache))):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(_np(tout), _np(jout), **TOL)
+    _same_cache(tcache, jcache)
+
+
 def test_greedy_generate_matches_jax_and_full_forward():
     """Greedy continuation == the JAX package's tokens == argmax over
     fresh full forwards at every step."""

@@ -288,15 +288,55 @@ def test_the_tool_compares_trip_count_aware_collective_bytes():
     assert _chip_smoke_reference()["gemma2-2b train_4k"] == got
 
 
-def _chip_smoke_reference():
-    """``chip_smoke.py``'s REFERENCE_DRYRUN (read from its text: the
-    script's own imports want the card)."""
+def _chip_smoke_reference(name="REFERENCE_DRYRUN"):
+    """``chip_smoke.py``'s REFERENCE_DRYRUN, or another of its constants
+    (read from its text: the script's own imports want the card)."""
     import ast
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
     tree = ast.parse(open(path).read())
     node = next(n for n in tree.body if isinstance(n, ast.Assign)
-                and n.targets[0].id == "REFERENCE_DRYRUN")
+                and n.targets[0].id == name)
     return ast.literal_eval(node.value)
+
+
+# the pairs whose weights DTensor gathered over ("pod", "data") in two
+# collectives, the second 16x the first, before ``shardctx`` gathered them
+# in one over the flattened group (6.10x / 6.42x / 7.49x / 2.76x the
+# reference's collective bytes on this host before; 0.49x / 0.73x / 0.49x
+# / 0.53x after)
+MULTI_POD_PAIRS = [("llama4-scout-17b-a16e", "decode_32k"),
+                   ("llama4-scout-17b-a16e", "long_500k"),
+                   ("jamba-1.5-large-398b", "decode_32k"),
+                   ("jamba-1.5-large-398b", "long_500k")]
+
+
+@pytest.fixture(scope="module")
+def against_reference_multi_pod():
+    """The tool on MULTI_POD_PAIRS on the 2x16x16 mesh (512 fake devices
+    a side), two pairs at a time."""
+    return _tool().run(MULTI_POD_PAIRS, multi_pod=True, jobs=2)
+
+
+@pytest.mark.parametrize("arch,shape", MULTI_POD_PAIRS)
+def test_dryrun_against_the_reference_on_2x16x16(against_reference_multi_pod,
+                                                 arch, shape):
+    """Per device on the 2x16x16 mesh: collective bytes at most 2x the
+    reference's compiled program's (a weight on ("pod", "data") is
+    gathered in one all-gather of its shard, as XLA gathers it), flops
+    at most 1.3x and memory at most 2x; ``chip_smoke.py`` holds the card
+    to the reference's figures of its pair."""
+    T = _tool()
+    res = against_reference_multi_pod[(arch, shape)]
+    assert "error" not in res["ref"], res["ref"]
+    assert "error" not in res["port"], res["port"]
+    r = T.ratios(res)
+    assert r["flops"] <= 1.3 and r["coll_bytes"] <= 2.0 \
+        and r["memory_bytes"] <= 2.0, (arch, shape, r)
+    assert r["flops"] >= 0.5, (arch, shape, r)
+    ref = _chip_smoke_reference("REFERENCE_DRYRUN_MULTI_POD").get(
+        f"{arch} {shape}")
+    if ref is not None:
+        assert ref == T.figures(res["ref"])
 
 
 # ------------------------------------- reduced train steps, fake 4x4 mesh

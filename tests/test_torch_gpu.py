@@ -14,6 +14,8 @@ model outputs ``TOL`` (rtol/atol 1e-4, fp32 matmuls on another device);
 greedy tokens equal except at near-ties of the logits within ``TOL``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -778,3 +780,146 @@ def test_reduced_train_step_on_a_fake_4x4_cuda_mesh(cuda, probe_4x4, arch):
     DTensors over a fake 4x4 CUDA mesh, the hooks live, runs."""
     lines = [l for l in probe_4x4.splitlines() if f" {arch} train" in l]
     assert len(lines) == 1 and lines[0].startswith("ok "), probe_4x4
+
+
+# ------------------------------------------------ core.jit: CUDA graphs
+def _jit_weights(cuda, d=64, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return {"w": torch.randn((d, d), generator=g, device=cuda),
+            "b": torch.randn((d,), generator=g, device=cuda)}
+
+
+def _affine(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
+                                  "mixtral-8x7b"])
+def test_jitted_segments_are_bit_equal_to_the_eager_ones(cuda, arch):
+    """Each segment of a two-hop runtime on the card, through its CUDA
+    graph, gives the bare segment function's output on the same input
+    bit for bit; the first call captures, the second replays."""
+    from repro_torch.core.jit import jit
+    base = get_config(arch)
+    cfg = base.reduced(num_layers=3 * len(base.pattern))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rt = CollabRuntime(cfg, M.params_from_numpy(_as_numpy(params), cfg,
+                                                cuda), (1, 2))
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(cuda)
+    bare = [f.fn for f in rt._seg_fns]
+    with torch.no_grad():
+        for k, fn in enumerate(bare):
+            f, p = rt._seg_fns[k], rt.p_segments[k]
+            assert isinstance(f, jit)
+            n = f.captures
+            got, again = f(p, x), f(p, x)
+            assert f.captures == n + 1
+            want = fn(p, x)
+            assert torch.equal(got, want) and torch.equal(again, want), k
+            x = got
+    assert rt._seg_fns[1].replays == 2
+
+
+def test_jit_replays_a_shape_and_captures_a_new_batch_or_params(cuda):
+    from repro_torch.core.jit import jit
+    f = jit(_affine)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    with torch.no_grad():
+        f(p, x)
+        f(p, torch.randn((4, 64), device=cuda))
+        assert (f.captures, f.replays) == (1, 2)
+        f(p, torch.randn((8, 64), device=cuda))  # a new batch size
+        assert f.captures == 2
+        q = {k: v.clone() for k, v in p.items()}  # same values, new tensors
+        assert torch.equal(f(q, x), _affine(q, x))
+        assert f.captures == 3
+        f(dict(p), x)  # the same tensors in another dict: a replay
+        assert (f.captures, f.replays) == (3, 5)
+
+
+def test_jit_sees_an_in_place_weight_update(cuda):
+    from repro_torch.core.jit import jit
+    f = jit(_affine)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    with torch.no_grad():
+        before = f(p, x)
+        p["w"].mul_(0.5)
+        p["b"].add_(1.0)
+        after = f(p, x)
+    assert f.captures == 1
+    assert torch.equal(after, _affine(p, x))
+    assert not torch.equal(after, before)
+
+
+def test_jit_outputs_do_not_alias(cuda):
+    """Two calls' outputs are fresh tensors, as ``jax.jit``'s are: the
+    second call leaves the first's values as they were."""
+    from repro_torch.core.jit import jit
+    f = jit(_affine)
+    p = _jit_weights(cuda)
+    x1, x2 = (torch.randn((4, 64), device=cuda) for _ in range(2))
+    with torch.no_grad():
+        y1 = f(p, x1)
+        keep = y1.clone()
+        y2 = f(p, x2)
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, keep) and torch.equal(y2, _affine(p, x2))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
+                                  "mixtral-8x7b"])
+def test_captured_generate_matches_the_eager_loop(cuda, arch):
+    """``generate`` (prefill and decode step jitted, the position a device
+    tensor) gives the tokens of the same greedy loop over the bare
+    ``prefill`` / ``decode_step`` with int positions, token for token."""
+    base = get_config(arch).reduced()
+    cfg = dataclasses.replace(base, capacity_factor=100.0) \
+        if base.num_experts else base
+    params = M.init_params(cfg, seed=2, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)).to(cuda)
+    n = 10
+    out = generate(gparams, cfg, prompt, n)
+    with torch.no_grad():
+        logits, cache = M.prefill(gparams, cfg, prompt, 12 + n)
+        toks = prompt
+        for t in range(n):
+            nxt = torch.argmax(logits, -1)[:, None].to(prompt.dtype)
+            toks = torch.cat([toks, nxt], dim=1)
+            if t < n - 1:
+                logits, cache = M.decode_step(gparams, cfg, cache, nxt,
+                                              12 + t)
+    assert torch.equal(out, toks)
+
+
+def test_jit_raises_when_the_function_syncs_in_the_capture(cuda):
+    """A function that reads a value back to the host (a sync, which a
+    CUDA-graph capture refuses) raises on the card, at every call: the
+    first call ran it once eagerly to warm up and once in the capture,
+    and the jit never runs it eagerly in place of the graph.  (A capture
+    that fails this way leaves torch's graph pool to it unfinished, so
+    the next call's capture fails at its start.)"""
+    from repro_torch.core.jit import jit
+    calls = []
+
+    def syncs(p, x):
+        calls.append(1)
+        return x * float((x @ p["w"]).sum())
+
+    f = jit(syncs)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError):
+            f(p, x)
+        assert len(calls) == 2
+        with pytest.raises(RuntimeError):
+            f(p, x)
+        assert len(calls) <= 4
+    assert (f.captures, f.replays) == (0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(_affine(p, x), _affine(p, x))  # the card still runs

@@ -232,3 +232,168 @@ def test_shardings_trees_and_placements():
         spec_placements((("data", "pod"),), mesh)
     assert batch_axes(mesh) == ("pod", "data")
     assert batch_axes(MESHES[0]) == ("data",)
+
+
+# ------------------- a weight on ("pod", "data") gathered in one all-gather
+_FLAT_GATHER_TRACE = r"""
+import json
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch import hlo_cost as HC
+from repro_torch.launch.dryrun import init_fake_group
+from repro_torch.models.shardctx import activation_sharding, constrain
+init_fake_group(8)
+mesh = init_device_mesh("cpu", (2, 2, 2),
+                        mesh_dim_names=("pod", "data", "model"))
+E, D, F = 4, 64, 32  # an MoE stack: D on ("pod", "data"), F on "model"
+w = DTensor.from_local(torch.empty((E, D // 4, F // 2), device="meta"),
+                       mesh, [Shard(1), Shard(1), Shard(2)], run_check=False)
+
+
+def pinned():
+    with activation_sharding({"expert_col_w": (None, None, "model")}):
+        return constrain(w, "expert_col_w")
+
+
+out = {}
+# DTensor's own first: once a flattened ("pod", "data") mesh exists, some
+# torch releases (2.13) gather over it themselves
+for name, fn in (("dtensor", lambda: w.redistribute(
+        mesh, [Replicate(), Replicate(), Shard(2)])), ("pinned", pinned)):
+    tr = HC.trace_step(fn)
+    out[name] = [[op.coll_kind, op.coll_bytes] for op in tr.ops
+                 if op.coll_kind]
+    out[name + "/placements"] = tuple(tr.out.placements) == (
+        Replicate(), Replicate(), Shard(2))
+    out[name + "/local"] = list(tr.out.to_local().shape)
+print(json.dumps(out))
+"""
+
+
+def test_a_pod_data_weight_gather_counts_one_all_gather_of_its_shard():
+    """On a fake 2x2x2 ("pod", "data", "model") mesh (a subprocess: no
+    process group leaks into this one), an MoE stack (E, D, F) sharded
+    ``S(1)`` on "pod" and "data" and ``S(2)`` on "model", pinned whole on
+    the data axes, is gathered in one all-gather over the flattened
+    ("pod", "data") group whose operand is the local shard, as XLA's HLO
+    gathers it; DTensor's own redistribute, on a mesh with no flattened
+    group yet, gathers over "data" and then over "pod", two collectives of
+    the shard and twice the shard."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    r = subprocess.run([sys.executable, "-c", _FLAT_GATHER_TRACE],
+                       env=dict(os.environ, PYTHONPATH=src),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    shard = 4 * (64 // 4) * (32 // 2) * 4  # the local shard's bytes
+    assert out["pinned"] == [["all-gather", shard]]
+    assert out["dtensor"] == [["all-gather", shard],
+                              ["all-gather", 2 * shard]]
+    for name in ("pinned", "dtensor"):
+        assert out[name + "/placements"]
+        assert out[name + "/local"] == [4, 64, 16]
+
+
+_FLAT_GATHER_RANK = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from repro_torch.models.shardctx import activation_sharding, constrain
+rank, d = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)  # eight ranks beside the other test workers
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=8)
+mesh = init_device_mesh("cpu", (2, 2, 2),
+                        mesh_dim_names=("pod", "data", "model"))
+w0 = torch.from_numpy(np.load(f"{d}/w.npy"))
+g_all = torch.from_numpy(np.load(f"{d}/g.npy"))
+F = w0.shape[2]
+m = mesh.get_local_rank("model")
+mine = g_all[rank][:, :, m * F // 2:(m + 1) * F // 2].contiguous()
+out = {}
+for name in ("pinned", "dtensor"):
+    for grad in ("partial", "replicate"):
+        w = distribute_tensor(w0, mesh, [Shard(1), Shard(1), Shard(2)])
+        w = w.detach().requires_grad_()
+        if name == "pinned":
+            with activation_sharding({"w": (None, None, "model")}):
+                y = constrain(w, "w")
+        else:
+            y = w.redistribute(mesh, [Replicate(), Replicate(), Shard(2)])
+        if grad == "partial":  # a product's weight gradient: each device's
+            g = DTensor.from_local(mine, mesh, [Partial(), Partial(),
+                                                Shard(2)], run_check=False)
+        else:
+            g = DTensor.from_local(g_all[0][:, :, m * F // 2:
+                                            (m + 1) * F // 2].contiguous(),
+                                   mesh, [Replicate(), Replicate(), Shard(2)],
+                                   run_check=False)
+        y.backward(g)
+        key = f"{name}/{grad}"
+        out[key + "/y"] = y.detach().full_tensor().numpy()
+        out[key + "/y_local"] = y.detach().to_local().numpy()
+        out[key + "/grad"] = w.grad.full_tensor().numpy()
+        assert tuple(y.placements) == (Replicate(), Replicate(), Shard(2))
+        assert tuple(w.grad.placements) == (Shard(1), Shard(1), Shard(2))
+np.savez(f"{d}/out{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def test_a_pod_data_weight_gather_and_its_gradient_on_eight_gloo_ranks(
+        tmp_path):
+    """Eight gloo ranks on a 2x2x2 ("pod", "data", "model") CPU mesh: the
+    pinned gather of a (4, 8, 6) weight sharded ``S(1)`` on "pod" and
+    "data" and ``S(2)`` on "model" (one all-gather over the flattened
+    group) gives every device the weight, bit for bit, as DTensor's own
+    redistribute does; and the weight's gradient, from a partial sum over
+    the data axes (one reduce-scatter) or from a replica, equals DTensor's
+    and the sum of the ranks' partials (1e-6 relative)."""
+    import os
+    import subprocess
+    import sys
+    rng = np.random.default_rng(11)
+    w0 = rng.standard_normal((4, 8, 6)).astype(np.float32)
+    g_all = rng.standard_normal((8, 4, 8, 6)).astype(np.float32)
+    np.save(tmp_path / "w.npy", w0)
+    np.save(tmp_path / "g.npy", g_all)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    procs = [subprocess.Popen([sys.executable, "-c", _FLAT_GATHER_RANK,
+                               str(r), str(tmp_path)],
+                              env=dict(os.environ, PYTHONPATH=src),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(8)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    # rank = pod * 4 + data * 2 + model: the model-axis slice m of the
+    # gradient sums the partials of the four ranks with that m
+    want_partial = np.zeros_like(w0)
+    for m in range(2):
+        cols = slice(3 * m, 3 * m + 3)
+        want_partial[:, :, cols] = sum(g_all[r][:, :, cols]
+                                       for r in range(8) if r % 2 == m)
+    for r in range(8):
+        got = np.load(tmp_path / f"out{r}.npz")
+        cols = slice(3 * (r % 2), 3 * (r % 2) + 3)
+        for grad, want in (("partial", want_partial), ("replicate",
+                                                       g_all[0])):
+            for name in ("pinned", "dtensor"):
+                key = f"{name}/{grad}"
+                np.testing.assert_array_equal(got[key + "/y"], w0)
+                np.testing.assert_array_equal(got[key + "/y_local"],
+                                              w0[:, :, cols])
+                np.testing.assert_allclose(got[key + "/grad"], want,
+                                           rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(got[f"pinned/{grad}/grad"],
+                                       got[f"dtensor/{grad}/grad"],
+                                       rtol=1e-6, atol=1e-6)

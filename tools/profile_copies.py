@@ -6,8 +6,9 @@ profiler records drift between profiles.
                                   [--requests 3]
 
 Builds ``chip_smoke.py``'s runtime of phases 5-7 for ``--arch`` (full
-width, random weights from seed 0, the planner's cut) and its steady
-request (fused end step + cloud step), then profiles ``--requests``
+width, random weights from seed 0, the planner's cut), with its segment
+functions called bare (``chip_smoke.eager_twin``: no CUDA graphs), and
+its steady request (fused end step + cloud step), then profiles ``--requests``
 requests ``--profiles`` times under ``torch.profiler`` with
 ``with_stack=True``.  For each profile it counts, for every source line
 of the port under which an op launched a ``direct_copy_kernel_cuda``, the
@@ -126,7 +127,7 @@ def main() -> int:
     n_end = sum(1 for i in off.decision.end_set if 0 < i <= cfg.num_layers)
     cut_group = min(max(1, round(n_end / cfg.group_size)),
                     cfg.num_groups - 1)
-    rt = CollabRuntime(cfg, params, cut_group)
+    rt = CS.eager_twin(CollabRuntime(cfg, params, cut_group))
     gen = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen,
                          device="cuda", dtype=torch.int32)
