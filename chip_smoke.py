@@ -67,13 +67,24 @@ Phases (any failure exits non-zero before the last line):
      and dequantize kernels once a microbatch, the output bit-equal to the
      pods serialized on one stream and to the plain versions' run, each
      microbatch within 0.05 of the monolithic forward, one step timed
-     with the overlap and serialized;
+     with the overlap and serialized; and the two-stream step under
+     ``core.jit`` (one CUDA graph holding both streams, as the reference
+     test jits its step): bit-equal to the eager, serialized and plain
+     steps, one capture over every timed step, one replay a step, host
+     launches a step from the counters, the kernel nodes of the step
+     captured whole, and its ms a step timed in turns with the eager
+     ones;
   11. training: one step's loss and gradients on the card against the CPU
-     (gemma2-2b at full width cut to 4 layers, full-width mamba2-130m), a
-     checkpoint round trip of the stepped params and AdamW state on the
-     card, and ``launch.train.train`` on full-width gemma2-2b (fp32, 5
-     steps of 8 x 256 tokens): ms per step, tokens per second, peak
-     memory and the fp32 bound;
+     (gemma2-2b at full width cut to 4 layers, full-width mamba2-130m),
+     then three steps of the train step jitted with params and opt_state
+     donated (``launch/train.py``'s step) against three eager donated
+     steps on the same weights and batches (loss and every params, m and
+     v leaf bit-equal or within JIT_RTOL, ``step == 3``, one capture,
+     the donated outputs the caller's tensors) and both timed in turns;
+     a checkpoint round trip of the stepped params and AdamW state on
+     the card, and the jitted ``launch.train.train`` on full-width
+     gemma2-2b (fp32, 5 steps of 8 x 256 tokens): ms per step, tokens per
+     second, peak memory (under the card's 80 GB) and the fp32 bound;
   12. the launch tooling on DTensor: (a) on the 1x1 card mesh (a one-rank
      NCCL group), full-width gemma2-2b's prefill and 8 decode steps with
      the parameters as DTensors in the serving layout and the activation
@@ -1201,6 +1212,9 @@ PIPE_SHAPES = ((2, 4, 32), (8, 4, 256))
 # each microbatch's max|d| / max|ref| against the monolithic forward, the
 # reference test's bound (tests/test_collab.py:94-101)
 PIPE_BOUND = 0.05
+# the eager two-stream step's wall ms before it was jitted (PERF.md
+# section 5), printed beside the jitted step's
+PIPE_EAGER_BEFORE = {(2, 4, 32): "98.8-214.5 ms", (8, 4, 256): "594-864 ms"}
 
 
 def time_steps(torch, fns, rounds=6):
@@ -1239,11 +1253,15 @@ def pipeline_check(torch, M, cfg, params, shape):
     with the plain quantize and dequantize (bit-equal), each microbatch
     against the monolithic forward (PIPE_BOUND), the boundary's and the
     logits' relative L2 error for microbatch 0 (the model's
-    amplification), and one step timed with the overlap and serialized,
-    in turns; one serialized step profiled (kernel time and launches a
-    step: the same kernels run in both modes).  Returns (launches,
-    numbers)."""
+    amplification); the two-stream step under ``core.jit``: bit-equal to
+    the three, host launches a step (graph replays, the jit's copies and
+    kernel launches, from the counters) and the kernel nodes of the step
+    captured whole; one step timed jitted, with the overlap and
+    serialized, in turns, and the jit's captures unchanged over them;
+    one serialized step profiled (kernel time and launches a step: the
+    same kernels run in both modes).  Returns (launches, numbers)."""
     from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+    from repro_torch.core.jit import jit
     from repro_torch.kernels import _build as KB
     from repro_torch.kernels import ops as KOPS
     n_micro, B, S = shape
@@ -1269,6 +1287,20 @@ def pipeline_check(torch, M, cfg, params, shape):
         assert torch.equal(out, steps["plain"](params, toks)), \
             f"the kernels' pipeline differs from the plain versions' at " \
             f"{shape}"
+        jitted = jit(steps["overlap"])
+        for _ in range(2):  # the capture's call, then a replay
+            assert torch.equal(jitted(params, toks), out), \
+                f"the jitted step differs from the eager one at {shape}"
+        torch.cuda.synchronize()
+        reps, cops = jitted.replays, jitted.copies
+        kern = sum(KB.LAUNCHES.values())
+        jitted(params, toks)
+        host = jitted.replays - reps + jitted.copies - cops + \
+            sum(KB.LAUNCHES.values()) - kern
+        assert jitted.replays - reps == 1, "a jitted step replayed " \
+            f"{jitted.replays - reps} graphs"
+        nodes = sum(1 for t in graph_node_types(
+            torch, lambda: steps["overlap"](params, toks)) if t == 0)
         rels = []
         for i in range(n_micro):
             h, _, _ = M.forward(params, cfg, toks[i])
@@ -1287,20 +1319,29 @@ def pipeline_check(torch, M, cfg, params, shape):
                 bnd = rel_err(torch, deq.float(), hb.float())
                 lg = rel_err(torch, out[0].float(), want)
         times = time_steps(torch, {
-            name: lambda s=steps[name]: s(params, toks)
-            for name in ("overlap", "serial")})
+            "jit": lambda: jitted(params, toks),
+            **{name: lambda s=steps[name]: s(params, toks)
+               for name in ("overlap", "serial")}})
+        assert jitted.captures == 1, \
+            f"the jitted step captured {jitted.captures} times"
         # the same kernels run in both modes: one serialized step profiled
         log(f"  {shape} serialized, under the profiler:")
         busy, _, per_step = profile_requests(
             torch, lambda: steps["serial"](params, toks), 1)
-    log(f"  {shape}: launches {launches}; two streams == one stream == "
-        f"plain K3/K2; max|d|/max|ref| per microbatch "
+    log(f"  {shape}: launches {launches}; jitted == two streams == one "
+        f"stream == plain K3/K2; max|d|/max|ref| per microbatch "
         f"{', '.join(f'{r:.4g}' for r in rels)} (< {PIPE_BOUND}); "
         f"microbatch 0 rel L2: boundary {bnd:.4g}, logits {lg:.4g} "
         f"(amplification {lg / bnd:.3g})")
+    log(f"  {shape} jitted: {jitted.captures} capture over every timed "
+        f"step, 1 graph replay a step; host launches a step {host} "
+        f"(counters); kernel nodes a step {nodes} (the eager step captured "
+        f"whole)")
     for name, (wall, dev) in times.items():
         log(f"  {shape} {name:7s}: {wall:.2f} ms wall, {dev:.2f} ms between "
             f"device events (median of 6, in turns)")
+    log(f"  {shape}: eager two-stream step before jit (PERF.md section "
+        f"5): {PIPE_EAGER_BEFORE[shape]}")
     assert max(rels) < PIPE_BOUND, rels
     for name in ("uaq_quantize", "uaq_dequantize"):
         assert launches.get(name, 0) == n_micro, \
@@ -1311,6 +1352,10 @@ def pipeline_check(torch, M, cfg, params, shape):
         "overlap_event_ms": times["overlap"][1],
         "serial_ms": times["serial"][0],
         "serial_event_ms": times["serial"][1],
+        "jit_ms": times["jit"][0], "jit_event_ms": times["jit"][1],
+        "jit_host_launches_per_step": host,
+        "jit_kernel_nodes_per_step": nodes,
+        "jit_captures": jitted.captures,
         "kernel_ms": busy, "launches_per_step": per_step}
 
 
@@ -1324,7 +1369,7 @@ def train_card_vs_cpu(torch, M, cfg):
     """One train step's loss and gradients on the card against the CPU,
     on the same CPU-drawn weights and batch (B = 2, S = 64): loss within
     1e-5 relative, every gradient leaf within 1e-3 relative L2.  Returns
-    (card params, loss rel err, worst leaf rel L2)."""
+    (CPU params, card params, loss rel err, worst leaf rel L2)."""
     from repro_torch.launch import steps as ST
     from repro_torch.training.optim import tree_leaves
     params = M.init_params(cfg, seed=0, device="cpu")
@@ -1344,7 +1389,77 @@ def train_card_vs_cpu(torch, M, cfg):
         f"card vs {float(loss):.6f} CPU (rel {lrel:.3g} < 1e-5); worst "
         f"gradient leaf rel L2 {worst:.3g} (< 1e-3)")
     assert lrel < 1e-5 and worst < 1e-3, (lrel, worst)
-    return gparams, lrel, worst
+    return params, gparams, lrel, worst
+
+
+def train_jit_vs_eager(torch, M, cfg, params, rounds=6):
+    """Three steps of the train step jitted with params and opt_state
+    donated (``launch/train.py``'s step) against three eager donated
+    steps, each side on its own card copy of the CPU-drawn ``params``,
+    on the same batches (B = 2, S = 64): each loss, and every params, m
+    and v leaf after the three, bit-equal or within JIT_RTOL (max |d|
+    over max |ref|); ``step == 3``; one capture; the returned params and
+    state the caller's tensors.  Then ``rounds`` more steps of each, in
+    turns: the median wall ms a step (host clock to a synchronize) and
+    the jit's captures unchanged over them.  Returns the numbers."""
+    from repro_torch.core.jit import jit
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    mine, theirs = (tree_to(torch, params, "cuda") for _ in range(2))
+    opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(theirs, opt_cfg)
+    step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
+               donate=("params", "opt_state"))
+    bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+    gen = torch.Generator().manual_seed(21)
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                             generator=gen).to("cuda")
+        return {"tokens": toks, "labels": toks}
+
+    def rel(a, w):
+        return 0.0 if torch.equal(a, w) else float(
+            (a - w).abs().max() / w.abs().max())
+
+    worst = 0.0
+    for _ in range(3):
+        b = batch()
+        p2, o2, loss, _ = step(mine, opt, b)
+        assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
+                                          tree_leaves((mine, opt)))), \
+            "the jitted step returned a donated input as another tensor"
+        _, _, want, _ = bare(theirs, bare_opt, b)
+        worst = max(worst, rel(loss, want))
+    after3 = int(opt.step)
+    assert after3 == int(bare_opt.step) == 3, after3
+    assert step.captures == 1, f"{step.captures} captures"
+    for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
+                    tree_leaves((theirs, bare_opt.m, bare_opt.v))):
+        worst = max(worst, rel(a, w))
+    assert worst <= JIT_RTOL, f"jitted train step {worst} from the eager"
+    walls = {"jit": [], "eager": []}
+    calls = {"jit": lambda b: step(mine, opt, b),
+             "eager": lambda b: bare(theirs, bare_opt, b)}
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        b = batch()
+        for name in (("jit", "eager") if r % 2 == 0 else ("eager", "jit")):
+            t0 = time.perf_counter()
+            calls[name](b)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    assert step.captures == 1, "the timed steps captured again"
+    ms = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  {cfg.name} ({cfg.num_layers} layers): 3 jitted donated steps "
+        f"against 3 eager ones: loss and params/m/v "
+        f"{'bit-equal' if worst == 0 else f'{worst:.3g} relative'}; step "
+        f"{after3} after 3; {step.captures} capture; ms a "
+        f"step (median of {rounds}, in turns) jitted {ms['jit']:.2f}, "
+        f"eager {ms['eager']:.2f}")
+    return {"jit_vs_eager_rel": worst, "jit_ms": ms["jit"],
+            "eager_ms": ms["eager"], "captures": step.captures}
 
 
 def checkpoint_round_trip(torch, cfg, params):
@@ -1384,10 +1499,12 @@ def checkpoint_round_trip(torch, cfg, params):
 
 def train_full_width(torch, M):
     """``train("gemma2-2b", smoke=False, steps=5, batch=8, seq=256)`` on
-    the card: fp32 params and AdamW state, remat.  Every loss finite;
-    ms per step (median of steps 2-5), tokens per second, peak memory,
-    and the fp32 bound: 8 N flops a token (forward, its recompute, and a
-    backward of twice the forward) at the card's fp32 peak."""
+    the card: fp32 params and AdamW state, remat, the step jitted and
+    donated (captured at step 1, replayed at steps 2-5).  Every loss
+    finite; ms per step (median of steps 2-5), tokens per second, peak
+    memory (under the card's 80 GB), and the fp32 bound: 8 N flops a
+    token (forward, its recompute, and a backward of twice the forward)
+    at the card's fp32 peak."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     batch, seq = 8, 256
@@ -1401,6 +1518,7 @@ def train_full_width(torch, M):
     n = M.param_count(params)
     assert len(losses) == 5 and all(math.isfinite(x) for x in losses), \
         losses
+    assert peak < 80, f"peak {peak:.2f} GB"
     ms = statistics.median(secs[1:]) * 1e3
     bound = 8 * n * batch * seq / FP32_OPS_PER_S * 1e3
     log(f"  gemma2-2b full width ({get_config('gemma2-2b').num_layers} "
@@ -1408,7 +1526,9 @@ def train_full_width(torch, M):
         f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
         f"{', '.join(f'{x * 1e3:.1f}' for x in secs)} (median of 2-5: "
         f"{ms:.1f}); {batch * seq / ms * 1e3:.0f} tokens/s; peak "
-        f"{peak:.2f} GB; fp32 bound {bound:.1f} ms ({100 * bound / ms:.1f}%)")
+        f"{peak:.2f} GB; fp32 bound {bound:.1f} ms ({100 * bound / ms:.1f}%); "
+        f"eager before jit (PERF.md section 5): 1211.8-1271.4 ms, peak "
+        f"54.22-54.73 GB")
     return {"losses": losses, "step_s": secs, "ms_per_step": ms,
             "tokens_per_s": batch * seq / ms * 1e3, "peak_gb": peak,
             "fp32_bound_ms": bound, "params": n}
@@ -1833,13 +1953,17 @@ def main() -> int:
 
     log("== phase 11: training on the card")
     t11 = time.time()
-    log(" (a) one train step, card against CPU")
+    log(" (a) one train step, card against CPU; the jitted donated step "
+        "against the eager one")
     res = {}
     for cfg in (dataclasses.replace(get_config("gemma2-2b"), num_layers=4),
                 get_config("mamba2-130m")):
-        gparams, lrel, worst = train_card_vs_cpu(torch, M, cfg)
-        res[f"{cfg.name} {cfg.num_layers} layers"] = {
-            "loss_rel": lrel, "worst_grad_rel_l2": worst}
+        cparams, gparams, lrel, worst = train_card_vs_cpu(torch, M, cfg)
+        res[f"{cfg.name} {cfg.num_layers} layers"] = dict(
+            train_jit_vs_eager(torch, M, cfg, cparams), loss_rel=lrel,
+            worst_grad_rel_l2=worst)
+        cparams = None
+        torch.cuda.empty_cache()
         if cfg.name.startswith("gemma2"):
             log(" (c) checkpoint round trip on the card")
             gb, t_save, t_load = checkpoint_round_trip(torch, cfg, gparams)

@@ -309,7 +309,11 @@ class PodMesh:
       CUDA stream of its own; a packet goes from pod 0's stream to pod 1's
       on an event, so pod 0's tick t+1 runs beside pod 1's tick t.
       ``overlap=False`` puts both pods on the current stream, one after
-      the other (the same function, serialized)."""
+      the other (the same function, serialized).  ``core.jit`` of the
+      two-stream step (as the reference test jits its step) captures
+      both streams in one CUDA graph: they fork from the capture stream
+      and join it again, and the packets' events are recorded in the
+      graph."""
     rank: Optional[int] = None
     streams: Optional[Tuple[Any, Any]] = None
 

@@ -1,4 +1,4 @@
-"""``jit``: the port's counterpart of ``jax.jit`` on the serving path.
+"""``jit``: the port's counterpart of ``jax.jit``.
 
 ``jax.jit`` traces a function once per argument shape and dispatches the
 compiled program whole.  Here, on CUDA arguments, ``jit(fn)`` captures
@@ -7,26 +7,38 @@ compiled program whole.  Here, on CUDA arguments, ``jit(fn)`` captures
 * the key holds the static arguments (every leaf of the arguments that
   is not a tensor, and the arguments' tree structure) and the shape,
   dtype, stride and device of every tensor leaf;
-* the arguments that carry weights (named ``p`` or ``params``) are bound
-  by address: their ``data_ptr``s are part of the key and they are never
-  copied, so an in-place update is seen, and another tensor captures
-  again, as a new ``jax.Array`` compiles again;
-* every other tensor leaf (activations, tokens, a cache, a position) is
-  copied into the graph's input buffers on each call;
+* the arguments that carry weights (named ``p`` or ``params``) and the
+  donated ones (``jit(fn, donate=(names...))``, the counterpart of
+  ``donate_argnums``) are bound by address: their ``data_ptr``s are part
+  of the key and they are never copied, so an in-place update is seen,
+  and another tensor captures again, as a new ``jax.Array`` compiles
+  again;
+* every other tensor leaf (activations, tokens, a cache, a position, a
+  batch) is copied into the graph's input buffers on each call;
 * before the first capture of a key, ``fn`` runs once eagerly on a side
   stream (the lazy extension, cuBLAS handles and the like are made
   there, which no capture may do); all graphs of one ``jit`` share one
   private memory pool, and are replayed on the caller's stream one at a
   time;
 * the outputs are cloned out of the pool, as ``jax.jit`` returns fresh
-  arrays (callers such as the async executor hold several at once);
+  arrays (callers such as the async executor hold several at once); an
+  output that is a donated input comes back as the caller's tensor, not
+  as a clone (a train step's params and optimizer state are updated in
+  place, and a clone of them would not fit beside them);
+* a key's first call with donated arguments returns the warm-up's
+  outputs and does not replay: the warm-up already updated the donated
+  tensors once, and a replay would update them a second time;
 * ``captures``, ``replays`` and ``copies`` (input copies and output
   clones, each one launch) count what each ``jit`` did.
 
 On CPU arguments ``fn`` is called directly: there is no CUDA graph on the
 CPU.  On CUDA a failed capture raises; ``fn`` is never run eagerly in its
-place.  DTensor arguments and arguments that require grad raise
-``TypeError``: this serves one card, and training is not captured.
+place.  The failed capture's graph and memory pool are dropped, so the
+next call captures again, as ``jax.jit`` traces again after a failed
+trace.  DTensor arguments and arguments that require grad raise
+``TypeError``: this serves one card, and a train step makes its own
+gradient leaves inside (``launch/steps.py``), so the capture holds the
+whole backward pass.
 """
 
 from __future__ import annotations
@@ -41,15 +53,67 @@ from torch.utils import _pytree as pytree
 BOUND = ("p", "params")  # the arguments bound by address
 
 
+def _record(graph, pool, stream, call):
+    """``call()`` captured into ``graph`` on ``stream``, its memory drawn
+    from ``pool``; returns its outputs.  A capture that raises is ended,
+    and what it left behind undone, before the error propagates."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the warm-up's blocks, which no graph reuses
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            out = call()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                _undo_capture(pool, stream)
+            raise
+        try:
+            graph.capture_end()
+        except BaseException:
+            _undo_capture(pool, stream)
+            raise
+    return out
+
+
+def _undo_capture(pool, stream):
+    """Undo what a capture that could not end (a sync in it spoils it)
+    leaves behind: torch's ``capture_end`` then raises before it stops
+    the allocator recording into ``pool`` (the next capture into the pool
+    would fail at its start), before it drops the capture's use of the
+    pool, and before it takes the default CUDA generator out of its
+    capture state (the card's next random draw outside a capture would
+    raise).  One small capture that ends does the last."""
+    device = torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(device, pool)
+    except RuntimeError:  # the capture got as far as ending the recording
+        pass
+    torch._C._cuda_releasePool(device, pool)
+    closing = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        closing.capture_begin()
+        torch.zeros((1,), device=device)
+        closing.capture_end()
+
+
 class jit:
     """``fn``, captured as a CUDA graph once a key and replayed on CUDA
-    arguments, called as it is on CPU arguments."""
+    arguments, called as it is on CPU arguments.  ``donate`` names the
+    arguments that ``fn`` updates in place (see the module docstring)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, donate=()):
         self.fn = fn
         self._sig = inspect.signature(fn)
+        unknown = sorted(set(donate) - set(self._sig.parameters))
+        if unknown:
+            raise ValueError(f"jit: donate names no argument of fn: "
+                             f"{unknown}")
+        self.donate = tuple(donate)
+        self._bound = set(BOUND) | set(self.donate)
         self._graphs = {}
-        self._pool = None
+        self._pool = self._stream = None
         self.captures = self.replays = self.copies = 0
 
     def key(self, *args, **kwargs):
@@ -57,13 +121,13 @@ class jit:
         return self._flatten(args, kwargs)[0]
 
     def _flatten(self, args, kwargs):
-        """(key, bound arguments, tensor leaf devices, the indices of the
-        leaves that are copied, the leaves and their tree); raises for a
-        DTensor or a leaf that requires grad."""
+        """(key, tensor leaf devices, the indices of the leaves that are
+        copied, the indices of the donated leaves, the leaves and their
+        tree); raises for a DTensor or a leaf that requires grad."""
         bound = self._sig.bind(*args, **kwargs)
         leaves, spec = pytree.tree_flatten(bound.arguments)
-        weights = [n in BOUND for n, v in bound.arguments.items()
-                   for _ in pytree.tree_leaves(v)]
+        names = [n for n, v in bound.arguments.items()
+                 for _ in pytree.tree_leaves(v)]
         tensors = [i for i, x in enumerate(leaves)
                    if isinstance(x, torch.Tensor)]
         for i in tensors:
@@ -73,34 +137,61 @@ class jit:
                 raise TypeError("jit takes no argument that requires grad")
         key = (spec, tuple(
             (tuple(x.shape), x.dtype, x.stride(), x.device,
-             x.data_ptr() if weights[i] else None)
+             x.data_ptr() if names[i] in self._bound else None)
             if isinstance(x, torch.Tensor) else x
             for i, x in enumerate(leaves)))
         kinds = {leaves[i].device.type for i in tensors}
-        copied = [i for i in tensors if not weights[i]]
-        return key, bound, kinds, copied, leaves, spec
+        copied = [i for i in tensors if names[i] not in self._bound]
+        donated = [i for i in tensors if names[i] in self.donate]
+        return key, kinds, copied, donated, leaves, spec
 
     def __call__(self, *args, **kwargs):
-        key, bound, kinds, copied, leaves, spec = self._flatten(args, kwargs)
+        key, kinds, copied, donated, leaves, spec = self._flatten(args,
+                                                                  kwargs)
         if kinds <= {"cpu"}:
             return self.fn(*args, **kwargs)
         if kinds != {"cuda"}:
             raise ValueError(f"jit: arguments on {sorted(kinds)}")
         if key not in self._graphs:
-            self._graphs[key] = self._capture(bound, leaves, copied, spec)
-        graph, buffers, out = self._graphs[key]
+            self._graphs[key], first = self._capture(leaves, copied,
+                                                     donated, spec)
+            if donated:
+                return self._hand_back(first, _aliases(first, donated,
+                                                       leaves), leaves,
+                                       clone=False)
+        graph, buffers, out, aliases = self._graphs[key]
         for i, buf in zip(copied, buffers):
             buf.copy_(leaves[i])
         graph.replay()
         self.replays += 1
+        self.copies += len(buffers)
+        return self._hand_back(out, aliases, leaves, clone=True)
+
+    def _hand_back(self, out, aliases, leaves, clone):
+        """``out`` with each output that is a donated input (``aliases``:
+        output leaf -> argument leaf) replaced by the caller's tensor at
+        that place and, with ``clone``, every other tensor cloned out of
+        the pool; without ``clone`` (the warm-up's outputs, made on its
+        side stream) the caller's stream is recorded on them, so that
+        their memory is not handed out again before the caller's work on
+        them is done."""
         outs, out_spec = pytree.tree_flatten(out)
-        outs = [x.clone() if isinstance(x, torch.Tensor) else x
-                for x in outs]
-        self.copies += len(buffers) + sum(isinstance(x, torch.Tensor)
-                                          for x in outs)
+        caller = torch.cuda.current_stream()
+        for j, x in enumerate(outs):
+            if j in aliases:
+                outs[j] = leaves[aliases[j]]
+            elif not isinstance(x, torch.Tensor):
+                continue
+            elif clone:
+                outs[j] = x.clone()
+                self.copies += 1
+            else:
+                x.record_stream(caller)
         return pytree.tree_unflatten(outs, out_spec)
 
-    def _capture(self, bound, leaves, copied, spec):
+    def _capture(self, leaves, copied, donated, spec):
+        """((graph, input buffers, the graph's outputs, their aliases of
+        donated inputs), the warm-up's outputs) for a new key."""
         leaves = list(leaves)
         buffers = [leaves[i].clone() for i in copied]
         for i, buf in zip(copied, buffers):
@@ -114,20 +205,32 @@ class jit:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            call()
+            first = call()
         torch.cuda.current_stream().wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream()
         graph = torch.cuda.CUDAGraph()
         # no cycle collection in the capture: a CUDA graph that it frees
         # there (held by unreachable objects) would spoil the capture
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                out = call()
+            out = _record(graph, self._pool, self._stream, call)
+        except BaseException:
+            # the next capture gets a new pool; the graphs captured before
+            # keep theirs
+            self._pool = self._stream = None
+            raise
         finally:
             if collecting:
                 gc.enable()
         self.captures += 1
-        return graph, buffers, out
+        return (graph, buffers, out, _aliases(out, donated, leaves)), first
+
+
+def _aliases(out, donated, leaves):
+    """{index of an output leaf: index of the donated argument leaf that
+    it is}."""
+    return {j: i for j, x in enumerate(pytree.tree_leaves(out))
+            for i in donated if x is leaves[i]}

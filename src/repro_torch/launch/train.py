@@ -6,6 +6,10 @@
 Runs on the CUDA device by default; ``train(..., device="cpu")`` runs on
 the CPU.  One device, no mesh: the JAX launcher builds one but does not
 use it.  ``production`` trains the full-size model with bfloat16 weights.
+The step is jitted with the parameters and the optimizer state donated,
+as the JAX launcher's is: on the card one CUDA graph, captured at the
+first step and replayed at every other (``core.jit``); on the CPU the
+step itself.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from repro_torch import require_device
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                    save_checkpoint)
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.jit import jit
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as M
@@ -37,7 +42,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     launcher for the same ``seed``).  Parameters come from
     ``models.model.init_params`` and, for archs that take embeddings, the
     embeds of step i from a ``torch.Generator`` seeded by (seed, i): both
-    differ from ``jax.random``'s numbers.  The step updates the
+    differ from ``jax.random``'s numbers.  The jitted step updates the
     parameters and the optimizer state in place (the JAX launcher donates
     them).  Returns (params, losses); ``step_seconds``, if given, receives
     each step's wall time, from the batch on the device to its loss
@@ -58,8 +63,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
         params = load_checkpoint(ckpt_dir, s, params)
         start = s
 
-    step_fn = ST.make_train_step(cfg, opt_cfg, microbatches=microbatches,
-                                 donate=True)
+    step_fn = jit(ST.make_train_step(cfg, opt_cfg,
+                                     microbatches=microbatches, donate=True),
+                  donate=("params", "opt_state"))
     data = SyntheticLM(cfg.vocab_size, seed=seed)
     losses: List[float] = []
     t0 = time.time()

@@ -102,11 +102,10 @@ def _segsum_decay(dA_cum):
 def _chunk_terms(xc, dtc, A, Bc, Cc):
     """The intra-chunk output and each chunk's state contribution of the
     chunks given.  xc: (B,nc,Q,H,P)  dtc: (B,nc,Q,H)  A: (H,)
-    Bc/Cc: (B,nc,Q,G,N).  Returns Yd (B,nc,Q,H,P), Sc (B,nc,H,P,N) and
-    the within-chunk cumsum of dt*A (B,nc,Q,H)."""
-    rep = xc.shape[3] // Bc.shape[3]
-    Bc = torch.repeat_interleave(Bc, rep, dim=3)  # (B,nc,Q,H,N)
-    Cc = torch.repeat_interleave(Cc, rep, dim=3)
+    Bc: (B,nc,Q,G,N)  Cc: (B,nc,Q,H,N).  Returns Yd (B,nc,Q,H,P), Sc
+    (B,nc,H,P,N) and the within-chunk cumsum of dt*A (B,nc,Q,H)."""
+    Bc = torch.repeat_interleave(Bc, xc.shape[3] // Bc.shape[3],
+                                 dim=3)  # (B,nc,Q,H,N)
     dA = dtc * A  # (B,nc,Q,H)
     cum = torch.cumsum(dA, dim=2)
     xdt = xc * dtc[..., None]
@@ -140,8 +139,8 @@ def _recurrence(Sc, last, h0):
 
 
 def _chunk_out(Cc, cum, h_in):
-    """Each chunk's output from the state entering it (B,nc,Q,H,P)."""
-    Cc = torch.repeat_interleave(Cc, cum.shape[3] // Cc.shape[3], dim=3)
+    """Each chunk's output from the state entering it (B,nc,Q,H,P).
+    Cc: (B,nc,Q,H,N)."""
     return constrain(torch.einsum("bcihn,bchpn->bcihp",
                                   Cc * torch.exp(cum)[..., None], h_in),
                      "ssm_chunk_x")
@@ -181,15 +180,18 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
 
     xc, dtc = r(x, "ssm_chunk_x"), r(dt, "ssm_chunk_dt")
     Bc, Cc = r(Bm, "ssm_chunk_bc"), r(Cm, "ssm_chunk_bc")
+    # C is repeated over the heads once, for both of its uses, as the
+    # reference repeats it; B has one use, in the intra-chunk terms
+    Cc = torch.repeat_interleave(Cc, H // Cc.shape[3], dim=3)
     Yd, Sc, cum = on_shards(_chunk_terms, (xc, dtc, A, Bc, Cc),
                             dims=((0, 3, 1), (0, 3, 1), (None, 0),
-                                  (0, None, 1), (0, None, 1)),
+                                  (0, None, 1), (0, 3, 1)),
                             out_dims=((0, 3, 1), (0, 2, 1), (0, 3, 1)))
     h_in, h = on_shards(_recurrence, (Sc, cum[:, :, -1, :], h0),
                         dims=((0, 2), (0, 2), (0, 1)),
                         out_dims=((0, 2), (0, 1)))
     Yo = on_shards(_chunk_out, (Cc, cum, h_in),
-                   dims=((0, None, 1), (0, 3, 1), (0, 2, 1)),
+                   dims=((0, 3, 1), (0, 3, 1), (0, 2, 1)),
                    out_dims=(0, 3, 1))
     y = reshape(Yd + Yo, Bsz, S, H, P)[:, :S_real]
     return y, h

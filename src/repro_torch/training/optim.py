@@ -83,12 +83,31 @@ def cosine_lr(cfg: AdamWConfig, step):
 
 
 # --------------------------------------------------------- optimizer
+_CONSTANTS: dict = {}
+
+
+def _constants(cfg: AdamWConfig, device):
+    """b1, 1 - b1, b2, 1 - b2, eps and the weight decay as 0-d tensors of
+    the compute dtype on ``device`` (the reference's ``jnp.asarray(v,
+    ct)``), made once a (config, device), by ``adamw_init``: a
+    tensor made from a host value is a host-to-device copy, which a
+    CUDA-graph capture of the update refuses."""
+    key = (cfg, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = tuple(
+            torch.tensor(v, dtype=cfg.compute_dtype, device=device)
+            for v in (cfg.b1, 1 - cfg.b1, cfg.b2, 1 - cfg.b2, cfg.eps,
+                      cfg.weight_decay))
+    return _CONSTANTS[key]
+
+
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     def z(p):
         return torch.zeros_like(p, dtype=cfg.state_dtype)
 
-    step = torch.zeros((), dtype=torch.int32,
-                       device=tree_leaves(params)[0].device)
+    device = tree_leaves(params)[0].device
+    _constants(cfg, device)
+    step = torch.zeros((), dtype=torch.int32, device=device)
     return AdamWState(step=step, m=tree_map(z, params),
                       v=tree_map(z, params))
 
@@ -103,13 +122,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     bc1 = 1 - cfg.b1 ** step.to(torch.float32)
     bc2 = 1 - cfg.b2 ** step.to(torch.float32)
     ct, st = cfg.compute_dtype, cfg.state_dtype
-    dev = step.device
-
-    def c(v):
-        return torch.tensor(v, dtype=ct, device=dev)
-
-    b1, b1c, b2, b2c = c(cfg.b1), c(1 - cfg.b1), c(cfg.b2), c(1 - cfg.b2)
-    eps, wd = c(cfg.eps), c(cfg.weight_decay)
+    b1, b1c, b2, b2c, eps, wd = _constants(cfg, step.device)
     bc1c, bc2c, lrc = bc1.to(ct), bc2.to(ct), lr.to(ct)
 
     def leaf(g, m, v, p):

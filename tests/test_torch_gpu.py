@@ -898,11 +898,10 @@ def test_captured_generate_matches_the_eager_loop(cuda, arch):
 
 def test_jit_raises_when_the_function_syncs_in_the_capture(cuda):
     """A function that reads a value back to the host (a sync, which a
-    CUDA-graph capture refuses) raises on the card, at every call: the
-    first call ran it once eagerly to warm up and once in the capture,
-    and the jit never runs it eagerly in place of the graph.  (A capture
-    that fails this way leaves torch's graph pool to it unfinished, so
-    the next call's capture fails at its start.)"""
+    CUDA-graph capture refuses) raises on the card, at every call: each
+    call runs it once eagerly to warm up and once in the capture, since a
+    failed capture leaves no graph behind, and the jit never runs it
+    eagerly in place of the graph."""
     from repro_torch.core.jit import jit
     calls = []
 
@@ -919,7 +918,121 @@ def test_jit_raises_when_the_function_syncs_in_the_capture(cuda):
         assert len(calls) == 2
         with pytest.raises(RuntimeError):
             f(p, x)
-        assert len(calls) <= 4
+        assert len(calls) == 4
     assert (f.captures, f.replays) == (0, 0)
     torch.cuda.synchronize()
     assert torch.equal(_affine(p, x), _affine(p, x))  # the card still runs
+
+
+def test_jit_captures_and_replays_after_a_failed_capture(cuda):
+    """A failed capture leaves the jit as it was, as ``jax.jit`` stays
+    usable after a failed trace: a capture-safe call on the same jit then
+    captures and replays, both on another key and on the key whose
+    capture failed; and the card's default generator draws again outside
+    a capture (a capture that cannot end leaves it in its capture state
+    unless the jit takes it out)."""
+    from repro_torch.core.jit import jit
+    syncs = [True]
+
+    def fn(p, x, scale=1.0):
+        if syncs[0]:
+            float(x.sum())
+        return _affine(p, x) * scale
+
+    f = jit(fn)
+    p = _jit_weights(cuda)
+    x = _jit_weights(cuda, seed=1)["w"][:4]
+    with torch.no_grad():
+        with pytest.raises(RuntimeError):
+            f(p, x)
+        assert (f.captures, f.replays) == (0, 0)
+        y = torch.randn((4, 64), device=cuda)
+        syncs[0] = False
+        got = [f(p, x, scale=2.0), f(p, y, scale=2.0)]  # another key
+        assert (f.captures, f.replays) == (1, 2)
+        assert torch.equal(got[0], _affine(p, x) * 2.0)
+        assert torch.equal(got[1], _affine(p, y) * 2.0)
+        got = [f(p, y), f(p, x)]  # the key whose capture failed
+        assert (f.captures, f.replays) == (2, 4)
+        assert torch.equal(got[0], _affine(p, y))
+        assert torch.equal(got[1], _affine(p, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jitted_two_stream_pipeline_is_bit_equal_to_the_eager_one(cuda,
+                                                                  dtype):
+    """``jit`` of the two-stream pipeline step (reduced qwen3-14b, 8 bits,
+    2 microbatches of (4, 32) tokens): one CUDA graph holds both pods'
+    streams, K3 and K2 (launched into the capture once a microbatch, and
+    never by a replay), and every replay gives the eager step's logits on
+    the same tokens bit for bit."""
+    from repro_torch.core.collab import PodMesh, make_collab_pipeline_step
+    from repro_torch.core.jit import jit
+    from repro_torch.training.optim import tree_map
+    cfg = get_config("qwen3-14b").reduced()
+    params = tree_map(lambda t: t.to(cuda, dtype),
+                      M.init_params(cfg, seed=0, device="cpu"))
+    rng = np.random.default_rng(6)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4, 32))
+                             .astype(np.int32)).to(cuda) for _ in range(2)]
+    step = make_collab_pipeline_step(cfg, PodMesh.on_card(cuda))
+    want = [step(params, t) for t in toks]
+    f = jit(step)
+    KB.LAUNCHES.clear()
+    got = f(params, toks[0])
+    torch.cuda.synchronize()
+    # the warm-up's launches and the capture's
+    assert KB.LAUNCHES["uaq_quantize"] == KB.LAUNCHES["uaq_dequantize"] == 4
+    got = [got, f(params, toks[1]), f(params, toks[0])]
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["uaq_quantize"] == KB.LAUNCHES["uaq_dequantize"] == 4
+    assert (f.captures, f.replays) == (1, 3)
+    for g, w in zip(got, want + want[:1]):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_jitted_donated_train_steps_equal_the_eager_ones(cuda, arch):
+    """Three steps of the train step jitted with params and opt_state
+    donated (as ``launch/train.py`` runs it) against three bare donated
+    steps on a copy of the same CPU-drawn weights and the same batches:
+    the loss and every params, m and v leaf bit-equal or within 1e-6
+    (max |d| over max |ref|; a GEMM under capture may pick another cuBLAS
+    algorithm), ``step == 3``, one capture and two replays (the first
+    call returns the warm-up's outputs: it applied the first update), and
+    the donated outputs are the caller's tensors, never clones: a replay
+    copies in the batch (2 leaves) and clones out the loss and the 2
+    metrics, nothing else."""
+    from repro_torch.core.jit import jit
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves)
+    cfg = get_config(arch).reduced()
+    cpu = _as_numpy(M.init_params(cfg, seed=0, device="cpu"))
+    mine, theirs = (M.params_from_numpy(cpu, cfg, cuda) for _ in range(2))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(theirs, opt_cfg)
+    step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
+               donate=("params", "opt_state"))
+    bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+    rng = np.random.default_rng(8)
+
+    def rel(a, w):
+        if torch.equal(a, w):
+            return 0.0
+        return float((a - w).abs().max() / w.abs().max())
+
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                .astype(np.int32)).to(cuda)
+        b = {"tokens": toks, "labels": toks}
+        p2, o2, loss, _ = step(mine, opt, b)
+        assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
+                                          tree_leaves((mine, opt))))
+        _, _, want, _ = bare(theirs, bare_opt, b)
+        assert rel(loss, want) <= 1e-6
+    assert int(opt.step) == int(bare_opt.step) == 3
+    assert (step.captures, step.replays, step.copies) == (1, 2, 2 * 5)
+    for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
+                    tree_leaves((theirs, bare_opt.m, bare_opt.v))):
+        assert rel(a, w) <= 1e-6

@@ -213,3 +213,67 @@ def test_key_of_a_partial_holds_its_call_arguments_only():
     assert a != step.key(params, cache=M.init_cache(cfg, 1, 32,
                                                     device="cpu"),
                          inputs=tok, pos=torch.tensor(3, dtype=torch.int32))
+
+
+def _sgd_step(params, opt_state, x):
+    """A donated step: the weights and the state are updated in place and
+    returned, beside a fresh loss."""
+    loss = (x @ params["w"]).sum()
+    opt_state["n"].add_(1)
+    params["w"].sub_(0.1 * x.sum(0)[:, None])
+    return params, opt_state, loss
+
+
+def test_donated_arguments_are_bound_by_address():
+    """``jit(fn, donate=(...))`` binds the donated arguments as it binds
+    ``params``: their addresses are in the key (an in-place update keeps
+    it, another tensor changes it), while the batch is copied in and keyed
+    by its layout; without ``donate`` the state would be copied."""
+    p, x = _weights(), torch.randn((3, 4))
+    s = {"n": torch.zeros((), dtype=torch.int32)}
+    f = jit(_sgd_step, donate=("params", "opt_state"))
+    key = f.key(p, s, x)
+    s["n"].add_(1)
+    p["w"].mul_(2.0)
+    assert f.key(p, s, x) == key
+    assert f.key(p, {"n": s["n"].clone()}, x) != key
+    assert f.key({k: v.clone() for k, v in p.items()}, s, x) != key
+    assert f.key(p, dict(s), x.clone()) == key
+    g = jit(_sgd_step)
+    assert g.key(p, s, x) == g.key(p, {"n": s["n"].clone()}, x)
+
+
+def test_donate_names_arguments_of_the_function():
+    with pytest.raises(ValueError, match="state"):
+        jit(_sgd_step, donate=("params", "state"))
+
+
+def test_jitted_donated_train_step_on_cpu_is_the_step():
+    """On CPU arguments the jitted donated train step is the step: three
+    steps return the caller's own params and state, updated in place
+    (``step == 3``), bit-equal to three bare donated steps on a copy."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves, tree_map)
+    cfg = get_config("mamba2-130m").reduced()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    b = {"tokens": toks, "labels": toks}
+    params = M.init_params(cfg, seed=3, device="cpu")
+    mine = tree_map(torch.clone, params)
+    step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
+               donate=("params", "opt_state"))
+    bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+    opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(params, opt_cfg)
+    for _ in range(3):
+        p2, o2, loss, _ = step(mine, opt, b)
+        assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
+                                          tree_leaves((mine, opt))))
+        _, _, want, _ = bare(params, bare_opt, b)
+        assert float(loss) == float(want)
+    assert int(opt.step) == int(bare_opt.step) == 3
+    assert (step.captures, step.replays, step.copies) == (0, 0, 0)
+    for a, w in zip(tree_leaves((mine, opt)), tree_leaves((params,
+                                                           bare_opt))):
+        assert torch.equal(a, w)

@@ -196,3 +196,58 @@ def test_init_mamba_mirrors_the_jax_tree():
     dt = torch.nn.functional.softplus(tp["dt_bias"])
     assert bool(((dt >= 1e-3 * 0.999) & (dt <= 0.1 * 1.001)).all())
     assert SSM.conv_dim(cfg) == JSSM.conv_dim(cfg)
+
+
+@pytest.mark.parametrize("S", [8, 13])
+def test_ssd_chunked_repeats_b_and_c_once_each_as_jax(monkeypatch, S):
+    """The scan repeats the B and C streams over the heads once each, as
+    the reference's two ``jnp.repeat`` calls do, and gives its values."""
+    cfg = _cfg()
+    args = _ssd_inputs(cfg, 2, S, seed=5)
+    calls = {"torch": 0, "jax": 0}
+    t_rep, j_rep = torch.repeat_interleave, jnp.repeat
+
+    def t_count(*a, **k):
+        calls["torch"] += 1
+        return t_rep(*a, **k)
+
+    def j_count(*a, **k):
+        calls["jax"] += 1
+        return j_rep(*a, **k)
+
+    monkeypatch.setattr(torch, "repeat_interleave", t_count)
+    monkeypatch.setattr(jnp, "repeat", j_count)
+    y, hT = SSM.ssd_chunked(cfg, *map(_t, args))
+    jy, jhT = JSSM.ssd_chunked(cfg, *map(jnp.asarray, args))
+    assert calls == {"torch": 2, "jax": 2}
+    _close(y, jy, SCAN_TOL)
+    _close(hT, jhT, SCAN_TOL)
+
+
+def test_reduced_mamba_forward_dispatches_447_ops():
+    """A reduced mamba2-130m forward (2 layers, tokens (1, 8)) dispatches
+    447 aten ops: the count of the scan that repeats C once a layer (one
+    ``repeat_interleave`` more a layer dispatched 455)."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config as t_config
+    from repro_torch.models import model as TM
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = t_config("mamba2-130m").reduced()
+    assert cfg.num_layers == 2
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with Count() as count:
+        TM.forward(params, cfg, tokens)
+    assert sum(count.ops.values()) == 447

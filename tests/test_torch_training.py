@@ -227,3 +227,22 @@ def test_forward_train_loss_and_grads_match_jax(arch):
         assert a.shape == w.shape
         err = np.linalg.norm(a.numpy() - w)
         assert err <= 1e-4 * np.linalg.norm(w) + 1e-12, (arch, err)
+
+
+def test_train_on_cpu_matches_the_jax_launcher(tmp_path):
+    """``train(..., device="cpu")``, its step jitted and donated, gives the
+    JAX launcher's losses (1e-5 relative, as ``forward_train``'s loss
+    across packages) over three steps of the same tokens, from the
+    reference's initial weights (saved by the JAX package's checkpoint at
+    step 0, which the port's launcher resumes from)."""
+    from repro import checkpoint as JCK
+    from repro.launch.train import train as j_train
+    kw = dict(smoke=True, steps=3, batch=2, seq=32, log_every=100, seed=0)
+    jcfg = j_get_config("gemma2-2b").reduced()
+    JCK.save_checkpoint(str(tmp_path), 0, JM.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    _, want = j_train("gemma2-2b", **kw)
+    _, got = train("gemma2-2b", ckpt_dir=str(tmp_path), ckpt_every=100,
+                   device="cpu", **kw)
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5)
