@@ -50,7 +50,8 @@ Phases (any failure exits non-zero before the last line):
      jitted step (one capture for the 31 steps; its logits against the
      bare step's) and through the bare step, beside the weight-bytes
      bound;
-  9. the three-tier end -> edge -> cloud path of ``examples/edge_tier.py``
+  9. the three-tier end -> edge -> cloud path of ``examples/edge_tier.py``,
+     planned and served through its twin ``examples_torch/edge_tier.py``,
      on full-width mamba2-130m (the planner's cuts 3 and 12 of 24 groups,
      4-bit hops): sync and async engines whose ``classify`` runs
      ``rt.run`` (quantize and dequantize kernels at every hop), the
@@ -86,14 +87,21 @@ Phases (any failure exits non-zero before the last line):
      gemma2-2b (fp32, 5 steps of 8 x 256 tokens): ms per step, tokens per
      second, peak memory (under the card's 80 GB) and the fp32 bound;
   12. the launch tooling on DTensor: (a) on the 1x1 card mesh (a one-rank
-     NCCL group), full-width gemma2-2b's prefill and 8 decode steps with
-     the parameters as DTensors in the serving layout and the activation
-     constraints live, bit-equal to the same steps on plain tensors (the
-     ms of a decode step with and without DTensor), and a train step of
-     the 4-layer gemma2-2b in the FSDP layout: loss bit-equal, gradients
-     within 1e-6; (b) in a subprocess, the dry-run of gemma2-2b train_4k
-     and mixtral-8x7b decode_32k on the 16x16 mesh of a fake 256-rank
-     group, and beside it llama4-scout decode_32k on the 2x16x16 mesh
+     NCCL group), full-width gemma2-2b's prefill of (2, 64) tokens and 8
+     decode steps with the parameters as DTensors in the serving layout
+     and the activation constraints live, eager and under ``core.jit``
+     (the counterpart of ``jax.jit`` on sharded arrays: one capture of
+     the decode step for the 8 positions), bit-equal to the same steps on
+     plain tensors, eager and jitted (the ms of a decode step all four
+     ways, host launches a jitted DTensor step, the kernel, NCCL and copy
+     nodes of the DTensor and the plain step captured whole); a train
+     step of the 4-layer gemma2-2b in the FSDP layout: loss bit-equal,
+     gradients within 1e-6; then three steps of it jitted with params and
+     opt_state donated against three eager donated DTensor steps, as in
+     phase 11 (a), and both timed in turns; (b) in a subprocess, the
+     dry-run of gemma2-2b train_4k and mixtral-8x7b decode_32k on the
+     16x16 mesh of a fake 256-rank group, and beside it llama4-scout
+     decode_32k on the 2x16x16 mesh
      (``tools/dryrun_vs_reference.py --side port``, 512 fake ranks): per
      device flops, HBM and collective bytes, roofline terms, and the
      flops, collective bytes and memory against the reference's own
@@ -103,12 +111,16 @@ Phases (any failure exits non-zero before the last line):
      S = 4, 32, two microbatches of 2 rows, which do not divide the
      4-way data axis) on meta DTensors over the 4x4 CUDA mesh of a fake
      16-rank group, hooks live: each step runs;
+  13. ``examples_torch/quickstart.py`` (the twin of
+     ``examples/quickstart.py``) on the card: the quantize, dequantize
+     and probe kernels launched through their wrappers, the split within
+     the 8-bit bound of the monolithic model;
   then print each phase's numbers, the card's name and power limit, the
-  kernels' JSON line (launches summed over phases 4-7's, 9's and 10's
-  main-path runs), and the contract line.
+  kernels' JSON line (launches summed over phases 4-7's, 9's, 10's and
+  13's main-path runs), and the contract line.
 
 Exits with code 2 and prints no result when CUDA is not available or
-``src/repro_torch`` is not beside this script.
+``src/repro_torch`` and ``examples_torch`` are not beside this script.
 """
 
 from __future__ import annotations
@@ -185,19 +197,17 @@ def log(*a):
     print(*a, flush=True)
 
 
-def group_cuts_from_frontiers(decision, cfg):
-    """Map the layer-level multi-cut onto strictly increasing group
-    boundaries of the stacked parameters (embed node is id 0); the
-    mapping of ``examples/edge_tier.py``, which imports JAX."""
-    cuts = []
-    lo = 1
-    for k, frontier in enumerate(decision.cuts):
-        n_layers = sum(1 for i in frontier if 0 < i <= cfg.num_layers)
-        hi = cfg.num_groups - (decision.n_hops - k)
-        cut = min(max(lo, round(n_layers / cfg.group_size)), hi)
-        cuts.append(cut)
-        lo = cut + 1
-    return tuple(cuts)
+def example(name):
+    """``examples_torch/<name>.py``, the twin of ``examples/<name>.py``,
+    as a module (loaded once)."""
+    import importlib.util
+    mod = f"examples_torch_{name}"
+    if mod not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            mod, os.path.join(ROOT, "examples_torch", f"{name}.py"))
+        sys.modules[mod] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[mod])
+    return sys.modules[mod]
 
 
 def close(a, b, atol, rtol):
@@ -594,6 +604,14 @@ def graph_node_types(torch, fn):
     the driver: a count of launches that does not rest on the profiler's
     activity records, which have once come one short or over in 50
     calls."""
+    return [kind for kind, _ in graph_nodes(torch, fn)]
+
+
+def graph_nodes(torch, fn):
+    """(type, what) of each node of a CUDA graph captured from one call
+    of ``fn``, read from the driver: for a kernel node its name (by
+    ``cuFuncGetName`` / ``cuKernelGetName``; "?" where the driver gives
+    none), for a copy node the bytes it copies, else None."""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
     graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -604,14 +622,51 @@ def graph_node_types(torch, fn):
     assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
     nodes = (ctypes.c_void_p * n.value)()
     assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-    types = []
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                      ctypes.byref(kind)) == 0
-        types.append(kind.value)
+        what = None
+        if kind.value == 0:
+            what = kernel_node_name(cu, node)
+        elif kind.value == 1:
+            what = copy_node_bytes(cu, node)
+        out.append((kind.value, what))
     del graph
-    return types
+    return out
+
+
+def kernel_node_name(cu, node):
+    """The name of a kernel node's function: CUDA_KERNEL_NODE_PARAMS_v2
+    holds the CUfunction first and, for a kernel launched from a library,
+    the CUkernel at byte 56."""
+    import ctypes
+    params = (ctypes.c_uint8 * 256)()
+    name = ctypes.c_char_p()
+    if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) != 0:
+        return "?"
+    func = ctypes.c_void_p.from_buffer(params, 0).value
+    kern = ctypes.c_void_p.from_buffer(params, 56).value
+    if func and cu.cuFuncGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(func)) == 0:
+        return name.value.decode()
+    if kern and cu.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(kern)) == 0:
+        return name.value.decode()
+    return "?"
+
+
+def copy_node_bytes(cu, node):
+    """The bytes a copy node copies: CUDA_MEMCPY3D's WidthInBytes,
+    Height and Depth, at bytes 176, 184 and 192 of the struct."""
+    import ctypes
+    params = (ctypes.c_uint8 * 256)()
+    if cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node), params) != 0:
+        return 0
+    w, h, d = (ctypes.c_size_t.from_buffer(params, off).value
+               for off in (176, 184, 192))
+    return w * max(h, 1) * max(d, 1)
 
 
 def profile_requests(torch, request, n):
@@ -923,59 +978,38 @@ def generation_check(torch, cfg, params, prompt_len=64, new=32):
 # ------------------------------------------------------------ phase 9
 def three_tier_runs(torch, cfg, params, device="cuda", executor=True):
     """The three-tier main path of ``examples/edge_tier.py`` on ``params``,
-    24 requests a run, with the deployment planned by the port (Jetson NX
-    end, AGX Orin edge and A6000 cloud over 50 Mbps WiFi and the LAN
-    backhaul): (a) the sync and async engines, each with ``classify`` through
-    ``rt.run`` (the quantize kernel at both senders, the dequantize kernel
-    at both receivers); with ``executor``, (b) ``AsyncHopPipeline`` running
-    the runtime's fused segment handles (the fused boundary kernel at both
+    24 requests a run, planned, its stream made and its ``classify`` built
+    by the twin ``examples_torch/edge_tier.py`` (Jetson NX end, AGX Orin
+    edge and A6000 cloud over 50 Mbps WiFi and the LAN backhaul): (a) the
+    sync and async engines, each with ``classify`` through ``rt.run`` (the
+    quantize kernel at both senders, the dequantize kernel at both
+    receivers); with ``executor``, (b) ``AsyncHopPipeline`` running the
+    runtime's fused segment handles (the fused boundary kernel at both
     intermediate segments, probes delivered through ``on_probe``) and (c)
-    two tenants under wdrr, then each alone.  The launch counts are set to
-    0 just before and read just after these runs; every check that
-    launches kernels comes after.  Returns a dict of the runs' results."""
-    import numpy as np
-    from repro_torch.core.collab import CollabRuntime
+    two tenants under wdrr, then each alone. The launch counts are set to 0
+    just before and read just after these runs; every check that launches
+    kernels comes after. Returns a dict of the runs' results."""
     from repro_torch.core.costs import (A6000_SERVER, EDGE_AGX_ORIN, ETH_LAN,
                                         JETSON_NX, WIFI_5GHZ,
                                         transformer_graph)
-    from repro_torch.core.partitioner import coach_offline_multihop
     from repro_torch.core.pipeline import TaskPlan
-    from repro_torch.data.pipeline import (CorrelatedTaskStream,
-                                           make_hop_calibration_sets)
     from repro_torch.kernels import _build as KB
     from repro_torch.serving import (AsyncCoachEngine, AsyncHopPipeline,
                                      CoachEngine, MultiTenantCoachEngine,
                                      TenantSpec, VirtualClock)
+    edge = example("edge_tier")
     devices = (JETSON_NX, EDGE_AGX_ORIN, A6000_SERVER)
     links = (WIFI_5GHZ(50.0), ETH_LAN())
-    off = coach_offline_multihop(transformer_graph(cfg, batch=1, seq=128),
-                                 devices, links)
-    cuts = group_cuts_from_frontiers(off.decision, cfg)
-    hop_bits = [int(np.mean(list(b.values()))) if b else 8
-                for b in off.decision.all_hop_bits]
+    off, cuts, hop_bits, rt, _ = edge.plan_tier(
+        cfg, params, transformer_graph(cfg, batch=1, seq=128), devices,
+        links)
     log(f"plan: cuts {cuts} of {cfg.num_groups} groups, hop bits {hop_bits}, "
         f"max stage {off.times.max_stage * 1e3:.3f} ms (planner's profiles)")
-    rt = CollabRuntime(cfg, params, cuts, default_bits=hop_bits)
-    stream = CorrelatedTaskStream(n_labels=16, dim=cfg.d_model,
-                                  correlation="medium", seed=0,
-                                  n_probe_depths=2, depth_decay=0.9)
-    calib = make_hop_calibration_sets(stream, n=300)
+    stream, calib = edge.make_stream(cfg, 0)
     tasks = stream.tasks(24)
     period = off.times.max_stage
-    eng_kw = dict(n_labels=16, calib_feats=calib[0][0],
-                  calib_labels=calib[0][1], boundary_elems=128 * cfg.d_model,
-                  links=list(links), hop_bits_offline=hop_bits,
-                  hop_calib=calib[1:2])
-
-    def tokens(task):
-        toks = (np.abs((task.features[:8] * 1000).astype(np.int64))
-                % cfg.vocab_size).astype(np.int32)
-        return torch.as_tensor(toks, device=device)[None]
-
-    def classify(task):
-        logits, _ = rt.run(tokens(task))
-        pred = int(torch.argmax(logits[0]).item()) % stream.n_labels
-        return task.hop_features, pred
+    eng_kw = edge.engine_kwargs(cfg, links, hop_bits, calib)
+    tokens, classify = edge.make_classify(rt, cfg, stream, device)
 
     def sync():
         if device == "cuda":
@@ -1392,74 +1426,107 @@ def train_card_vs_cpu(torch, M, cfg):
     return params, gparams, lrel, worst
 
 
-def train_jit_vs_eager(torch, M, cfg, params, rounds=6):
+def train_jit_vs_eager(torch, M, cfg, params, rounds=6, mesh=None):
     """Three steps of the train step jitted with params and opt_state
     donated (``launch/train.py``'s step) against three eager donated
-    steps, each side on its own card copy of the CPU-drawn ``params``,
-    on the same batches (B = 2, S = 64): each loss, and every params, m
-    and v leaf after the three, bit-equal or within JIT_RTOL (max |d|
-    over max |ref|); ``step == 3``; one capture; the returned params and
-    state the caller's tensors.  Then ``rounds`` more steps of each, in
-    turns: the median wall ms a step (host clock to a synchronize) and
-    the jit's captures unchanged over them.  Returns the numbers."""
+    steps, each side on its own card copy of ``params``, on the same
+    batches (B = 2, S = 64): each loss, and every params, m and v leaf
+    after the three, bit-equal or within JIT_RTOL (max |d| over max
+    |ref|); ``step == 3``; one capture; the returned params and state the
+    caller's tensors.  Then ``rounds`` more steps of each, in turns: the
+    median wall ms a step (host clock to a synchronize) and the jit's
+    captures unchanged over them.  With a ``mesh``, both sides run on
+    DTensors in the FSDP layout on it, the hooks live (``core.jit`` on
+    DTensor leaves).  Returns the numbers."""
+    import contextlib
+    from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.core.jit import jit
     from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute, layout_specs,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
     from repro_torch.training.optim import (AdamWConfig, adamw_init,
-                                            tree_leaves)
+                                            tree_leaves, tree_map)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    mine, theirs = (tree_to(torch, params, "cuda") for _ in range(2))
-    opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(theirs, opt_cfg)
-    step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
-               donate=("params", "opt_state"))
-    bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+    layout = contextlib.ExitStack()
+    if mesh is not None:
+        layout.enter_context(activation_sharding(layout_specs(cfg, mesh,
+                                                              2)))
+        layout.enter_context(implicit_replication())
+
+    def place(tree, batch=False):
+        if mesh is None:
+            return tree
+        if batch:
+            return distribute(tree, {k: NamedSharding(mesh, batch_spec(
+                mesh, 2, 1)) for k in tree})
+        return distribute(tree, shard_params(tree, mesh, cfg))
+
     gen = torch.Generator().manual_seed(21)
 
     def batch():
         toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
                              generator=gen).to("cuda")
-        return {"tokens": toks, "labels": toks}
+        return place({"tokens": toks, "labels": toks}, batch=True)
 
     def rel(a, w):
+        a, w = full(a), full(w)
         return 0.0 if torch.equal(a, w) else float(
             (a - w).abs().max() / w.abs().max())
 
-    worst = 0.0
-    for _ in range(3):
+    with layout:
+        mine, theirs = (place(tree_map(lambda t: t.to("cuda", copy=True),
+                                       params)) for _ in range(2))
+        opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(theirs,
+                                                               opt_cfg)
+        step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
+                   donate=("params", "opt_state"))
+        bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+        worst = 0.0
+        for _ in range(3):
+            b = batch()
+            p2, o2, loss, _ = step(mine, opt, b)
+            assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
+                                              tree_leaves((mine, opt)))), \
+                "the jitted step returned a donated input as another tensor"
+            _, _, want, _ = bare(theirs, bare_opt, b)
+            worst = max(worst, rel(loss, want))
+        after3 = int(opt.step)
+        assert after3 == int(bare_opt.step) == 3, after3
+        assert step.captures == 1, f"{step.captures} captures"
+        for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
+                        tree_leaves((theirs, bare_opt.m, bare_opt.v))):
+            worst = max(worst, rel(a, w))
+        assert worst <= JIT_RTOL, f"jitted train step {worst} from the eager"
+        walls = {"jit": [], "eager": []}
+        calls = {"jit": lambda b: step(mine, opt, b),
+                 "eager": lambda b: bare(theirs, bare_opt, b)}
+        torch.cuda.synchronize()
+        for r in range(rounds):
+            b = batch()
+            for name in (("jit", "eager") if r % 2 == 0
+                         else ("eager", "jit")):
+                t0 = time.perf_counter()
+                calls[name](b)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        assert step.captures == 1, "the timed steps captured again"
         b = batch()
-        p2, o2, loss, _ = step(mine, opt, b)
-        assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
-                                          tree_leaves((mine, opt)))), \
-            "the jitted step returned a donated input as another tensor"
-        _, _, want, _ = bare(theirs, bare_opt, b)
-        worst = max(worst, rel(loss, want))
-    after3 = int(opt.step)
-    assert after3 == int(bare_opt.step) == 3, after3
-    assert step.captures == 1, f"{step.captures} captures"
-    for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
-                    tree_leaves((theirs, bare_opt.m, bare_opt.v))):
-        worst = max(worst, rel(a, w))
-    assert worst <= JIT_RTOL, f"jitted train step {worst} from the eager"
-    walls = {"jit": [], "eager": []}
-    calls = {"jit": lambda b: step(mine, opt, b),
-             "eager": lambda b: bare(theirs, bare_opt, b)}
-    torch.cuda.synchronize()
-    for r in range(rounds):
-        b = batch()
-        for name in (("jit", "eager") if r % 2 == 0 else ("eager", "jit")):
-            t0 = time.perf_counter()
-            calls[name](b)
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-    assert step.captures == 1, "the timed steps captured again"
+        nodes = node_counts(graph_nodes(torch, lambda: bare(theirs,
+                                                             bare_opt, b)))
     ms = {k: statistics.median(v) for k, v in walls.items()}
-    log(f"  {cfg.name} ({cfg.num_layers} layers): 3 jitted donated steps "
-        f"against 3 eager ones: loss and params/m/v "
+    where = "" if mesh is None else ", DTensors in the FSDP layout on the " \
+        "1x1 mesh"
+    log(f"  {cfg.name} ({cfg.num_layers} layers{where}): 3 jitted donated "
+        f"steps against 3 eager ones: loss and params/m/v "
         f"{'bit-equal' if worst == 0 else f'{worst:.3g} relative'}; step "
         f"{after3} after 3; {step.captures} capture; ms a "
         f"step (median of {rounds}, in turns) jitted {ms['jit']:.2f}, "
-        f"eager {ms['eager']:.2f}")
+        f"eager {ms['eager']:.2f}; the step captured whole: {nodes}")
     return {"jit_vs_eager_rel": worst, "jit_ms": ms["jit"],
-            "eager_ms": ms["eager"], "captures": step.captures}
+            "eager_ms": ms["eager"], "captures": step.captures,
+            "graph": nodes}
 
 
 def checkpoint_round_trip(torch, cfg, params):
@@ -1585,13 +1652,18 @@ def full(t):
 
 def dtensor_serve_check(torch, M, mesh):
     """Full-width gemma2-2b, a prefill of (2, 64) tokens and 8 decode
-    steps through ``make_prefill_step`` / ``make_serve_step``: the params
-    as DTensors in the serving layout on the 1x1 card mesh with the hooks
-    live, against the same steps on plain tensors (the same inputs): every
-    logit bit-equal.  Returns (max |d| over the steps, decode ms plain,
-    decode ms DTensor)."""
+    steps through ``make_prefill_step`` / ``make_serve_step``, four ways
+    on the same inputs: plain tensors eager and jitted, and the params as
+    DTensors in the serving layout on the 1x1 card mesh with the hooks
+    live, eager and jitted (``core.jit`` on DTensor leaves, the position
+    a device tensor).  Every logit bit-equal to the plain eager steps';
+    one capture of each jitted decode step for the 8 positions.  The
+    jitted DTensor step's host launches a step come from its counters;
+    its kernel and collective (NCCL) nodes from the eager DTensor step
+    captured whole.  Returns the numbers."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_config
+    from repro_torch.core.jit import jit
     from repro_torch.launch import steps as ST
     from repro_torch.launch.sharding import (NamedSharding, batch_spec,
                                              distribute, layout_specs,
@@ -1605,44 +1677,101 @@ def dtensor_serve_check(torch, M, mesh):
                          device="cuda", dtype=torch.int32)
     prefill = ST.make_prefill_step(cfg, max_seq=S + steps)
     serve = ST.make_serve_step(cfg)
+    counts = {}
 
-    def run(p, wrap):
-        logits, cache = prefill(p, wrap(toks[:, :S]))
+    def run(p, wrap, jitted):
+        pf, st = (jit(prefill), jit(serve)) if jitted else (prefill, serve)
+        logits, cache = pf(p, wrap(toks[:, :S]))
         outs, ms = [full(logits)], []
         for i in range(steps):
+            pos = torch.full((), S + i, dtype=torch.int32, device="cuda") \
+                if jitted else S + i
+            x = wrap(toks[:, S + i:S + i + 1])
             torch.cuda.synchronize()
+            before = st.replays + st.copies if jitted else 0
             t0 = time.perf_counter()
-            logits, cache = serve(p, cache, wrap(toks[:, S + i:S + i + 1]),
-                                  S + i)
+            logits, cache = st(p, cache, x, pos)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+            if jitted:
+                counts["host_launches"] = st.replays + st.copies - before
             outs.append(full(logits))
-        return outs, statistics.median(ms)
+        if jitted:
+            assert (pf.captures, st.captures, st.replays) == (1, 1, steps), \
+                f"jitted prefill / decode: {pf.captures} / {st.captures} " \
+                f"captures, {st.replays} decode replays for {steps} steps"
+        # the first jitted step warms up and captures: the median of the
+        # 7 after it, and of all 8 eager steps
+        return outs, statistics.median(ms[1:] if jitted else ms), cache
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want)), max(
+            float((g - w).abs().max()) for g, w in zip(got, want))
 
     with torch.no_grad():
-        want, ms_plain = run(params, lambda x: x)
+        want, ms_plain, _ = run(params, lambda x: x, False)
+        got_pj, ms_plain_jit, _ = run(params, lambda x: x, True)
         with activation_sharding(layout_specs(cfg, mesh, B)), \
                 implicit_replication():
             dp = distribute(params, shard_params(params, mesh, cfg,
                                                  serving=True))
-            got, ms_dt = run(dp, lambda x: distribute(x, NamedSharding(
-                mesh, batch_spec(mesh, B, 1))))
-    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+
+            def wrap(x):
+                return distribute(x, NamedSharding(mesh, batch_spec(
+                    mesh, B, 1)))
+
+            got, ms_dt, cache = run(dp, wrap, False)
+            got_j, ms_dt_jit, _ = run(dp, wrap, True)
+            x = wrap(toks[:, -1:])
+            pos = torch.full((), S + steps - 1, dtype=torch.int32,
+                             device="cuda")
+            nodes = node_counts(graph_nodes(torch, lambda: serve(
+                dp, cache, x, pos)))
+        _, cache = prefill(params, toks[:, :S])
+        plain = node_counts(graph_nodes(torch, lambda: serve(
+            params, cache, toks[:, S:S + 1], pos)))
+    checks = {"DTensor eager": same(got, want),
+              "DTensor jitted": same(got_j, want),
+              "plain jitted": same(got_pj, want)}
+    worst = max(w for _, w in checks.values())
     log(f"  gemma2-2b full width, serving layout on the 1x1 mesh: prefill "
-        f"+ {steps} decode steps, logits bit-equal to plain tensors: "
-        f"{equal} (max |d| {worst:.3g}); decode step {ms_plain:.2f} ms "
-        f"plain, {ms_dt:.2f} ms DTensor (+{ms_dt - ms_plain:.2f} ms of "
-        f"DTensor dispatch on the host)")
-    assert equal, f"DTensor logits differ from plain ones by {worst}"
-    return worst, ms_plain, ms_dt
+        f"+ {steps} decode steps of B = {B}, logits against the plain eager "
+        f"steps: " + ", ".join(f"{k} bit-equal {e} (max |d| {w:.3g})"
+                               for k, (e, w) in checks.items()))
+    log(f"  decode ms a step: plain eager {ms_plain:.2f}, plain jitted "
+        f"{ms_plain_jit:.2f}, DTensor eager {ms_dt:.2f}, DTensor jitted "
+        f"{ms_dt_jit:.2f} (one capture each for the {steps} positions; "
+        f"jitted: median of the {steps - 1} steps after the capture); "
+        f"jitted DTensor step: {counts['host_launches']} host launches a "
+        f"step (counters: 1 replay + input copies and output clones); the "
+        f"step captured whole, DTensor {nodes} (plain {plain})")
+    assert all(e for e, _ in checks.values()), \
+        f"DTensor or jitted logits differ from the plain ones: {checks}"
+    return {"max_abs_diff": worst, "decode_ms_plain": ms_plain,
+            "decode_ms_plain_jit": ms_plain_jit, "decode_ms_dtensor": ms_dt,
+            "decode_ms_dtensor_jit": ms_dt_jit,
+            "host_launches_per_step_dtensor_jit": counts["host_launches"],
+            "graph_dtensor": nodes, "graph_plain": plain}
+
+
+def node_counts(nodes):
+    """``graph_nodes``' nodes counted: kernels, NCCL collectives among
+    them, copies and the bytes they copy, and all."""
+    return {"kernels": sum(1 for t, _ in nodes if t == 0),
+            "nccl": sum(1 for t, n in nodes if t == 0 and "nccl" in
+                        n.lower()),
+            "copies": sum(1 for t, _ in nodes if t == 1),
+            "copy_bytes": sum(n for t, n in nodes if t == 1),
+            "all": len(nodes)}
 
 
 def dtensor_train_check(torch, M, mesh):
     """One train step's loss and gradients of full-width gemma2-2b cut
     to 4 layers (phase 11's step, B = 2, S = 64) in the FSDP layout on the
     1x1 card mesh against plain tensors: loss bit-equal, every gradient
-    leaf within 1e-6 relative L2.  Returns (loss rel, worst leaf)."""
+    leaf within 1e-6 relative L2; then ``train_jit_vs_eager`` on DTensors
+    in that layout.  Returns (loss rel, worst leaf, the jitted steps'
+    numbers)."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as ST
@@ -1674,7 +1803,9 @@ def dtensor_train_check(torch, M, mesh):
         f"{bool(torch.equal(dloss, loss))}); worst gradient leaf rel L2 "
         f"{worst:.3g} (< 1e-6)")
     assert torch.equal(dloss, loss) and worst < 1e-6, (lrel, worst)
-    return lrel, worst
+    dp = grads = dgrads = None
+    jitted = train_jit_vs_eager(torch, M, cfg, params, rounds=4, mesh=mesh)
+    return lrel, worst, jitted
 
 
 def dryrun_check():
@@ -1782,15 +1913,42 @@ def probe_check(proc):
     return secs
 
 
+# ------------------------------------------------------------ phase 13
+def quickstart_check(torch):
+    """``examples_torch/quickstart.py`` run on the card as a user runs it
+    (its ``main``, on reduced gemma2-2b): the quantize kernel at its end
+    step, the dequantize kernel at its cloud step and the probe kernel at
+    ``rt.probe`` each launched (the wrappers' counters, set to 0 just
+    before and read just after); the split within SPLIT_BOUND[8] of the
+    monolithic model; a finite separability and one choice for each of
+    its 4 tasks.  Returns (launches, numbers)."""
+    from repro_torch.kernels import _build as KB
+    KB.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = example("quickstart").main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(KB.LAUNCHES)
+    log(f"quickstart in {wall:.2f} s; launches {launches}")
+    for name in ("uaq_quantize", "uaq_dequantize", "semantic_probe"):
+        assert launches.get(name, 0) > 0, f"quickstart never launched {name}"
+    seps = [c[0] for c in res["choices"]]
+    assert res["rel_err"] < SPLIT_BOUND[8], res
+    assert len(seps) == 4 and all(math.isfinite(v) for v in seps), res
+    return launches, dict(res, wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout "
-              f"of the repository", file=sys.stderr)
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")) or \
+            not os.path.isdir(os.path.join(ROOT, "examples_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch or {ROOT}/examples_torch not "
+              f"found; run from a checkout of the repository",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1983,9 +2141,9 @@ def main() -> int:
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh("cuda")
     log(f" (a) the 1x1 card mesh: {mesh}")
-    worst, ms_plain, ms_dt = dtensor_serve_check(torch, M, mesh)
+    serve_res = dtensor_serve_check(torch, M, mesh)
     torch.cuda.empty_cache()
-    lrel, gworst = dtensor_train_check(torch, M, mesh)
+    lrel, gworst, train_jit = dtensor_train_check(torch, M, mesh)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     log(" (b) the dry-run on the 16x16 and 2x16x16 meshes and (c) the "
@@ -2000,11 +2158,14 @@ def main() -> int:
         raise
     probe_secs = probe_check(probe)
     results["dtensor"] = {
-        "serve_max_abs_diff": worst, "decode_ms_plain": ms_plain,
-        "decode_ms_dtensor": ms_dt, "train_loss_rel": lrel,
-        "train_worst_grad_rel_l2": gworst, "dryrun": dryrun,
-        "train_4x4_s": probe_secs}
+        "serve": serve_res, "train_loss_rel": lrel,
+        "train_worst_grad_rel_l2": gworst, "train_jit": train_jit,
+        "dryrun": dryrun, "train_4x4_s": probe_secs}
     log(f"phase 12 in {time.time() - t12:.1f}s (budget 60 s)")
+
+    log("== phase 13: examples_torch/quickstart.py on the card")
+    lq, results["quickstart"] = quickstart_check(torch)
+    add_launches(lq)
 
     assert "jax" not in sys.modules and "repro" not in sys.modules, \
         "the port imported JAX or the JAX package"

@@ -31,14 +31,28 @@ compiled program whole.  Here, on CUDA arguments, ``jit(fn)`` captures
 * ``captures``, ``replays`` and ``copies`` (input copies and output
   clones, each one launch) count what each ``jit`` did.
 
-On CPU arguments ``fn`` is called directly: there is no CUDA graph on the
-CPU.  On CUDA a failed capture raises; ``fn`` is never run eagerly in its
-place.  The failed capture's graph and memory pool are dropped, so the
-next call captures again, as ``jax.jit`` traces again after a failed
-trace.  DTensor arguments and arguments that require grad raise
-``TypeError``: this serves one card, and a train step makes its own
-gradient leaves inside (``launch/steps.py``), so the capture holds the
-whole backward pass.
+DTensor leaves are taken, as ``jax.jit`` takes sharded arrays:
+
+* a DTensor's key entry holds its local tensor's shape, dtype, stride
+  and device and its own layout (device mesh, placements, global shape
+  and stride); a bound one (weights, donated state) is bound by its local
+  tensor's address;
+* a copied DTensor's local tensor is copied into the graph's input
+  buffer, which the capture sees as a DTensor of the same layout;
+* a DTensor output comes back as a fresh DTensor of the same layout
+  around a clone of its local tensor (a donated one as the caller's own);
+* the layout in force (``shardctx.activation_sharding``'s specs) is part
+  of every key: a capture records the redistributions those specs chose,
+  so a call under another layout, or under none, captures again, as
+  ``jax.jit`` keys its cache on the context mesh.
+
+On CPU arguments (CPU DTensors too) ``fn`` is called directly: there is
+no CUDA graph on the CPU.  On CUDA a failed capture raises; ``fn`` is
+never run eagerly in its place.  The failed capture's graph and memory
+pool are dropped, so the next call captures again, as ``jax.jit`` traces
+again after a failed trace.  Arguments that require grad raise
+``TypeError``: a train step makes its own gradient leaves inside
+(``launch/steps.py``), so the capture holds the whole backward pass.
 """
 
 from __future__ import annotations
@@ -49,6 +63,8 @@ import inspect
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
+
+from repro_torch.models.shardctx import layout_key
 
 BOUND = ("p", "params")  # the arguments bound by address
 
@@ -123,7 +139,7 @@ class jit:
     def _flatten(self, args, kwargs):
         """(key, tensor leaf devices, the indices of the leaves that are
         copied, the indices of the donated leaves, the leaves and their
-        tree); raises for a DTensor or a leaf that requires grad."""
+        tree); raises for a leaf that requires grad."""
         bound = self._sig.bind(*args, **kwargs)
         leaves, spec = pytree.tree_flatten(bound.arguments)
         names = [n for n, v in bound.arguments.items()
@@ -131,13 +147,10 @@ class jit:
         tensors = [i for i, x in enumerate(leaves)
                    if isinstance(x, torch.Tensor)]
         for i in tensors:
-            if isinstance(leaves[i], DTensor):
-                raise TypeError("jit takes no DTensor arguments")
             if leaves[i].requires_grad:
                 raise TypeError("jit takes no argument that requires grad")
-        key = (spec, tuple(
-            (tuple(x.shape), x.dtype, x.stride(), x.device,
-             x.data_ptr() if names[i] in self._bound else None)
+        key = (spec, layout_key(), tuple(
+            _tensor_key(x, names[i] in self._bound)
             if isinstance(x, torch.Tensor) else x
             for i, x in enumerate(leaves)))
         kinds = {leaves[i].device.type for i in tensors}
@@ -161,7 +174,7 @@ class jit:
                                        clone=False)
         graph, buffers, out, aliases = self._graphs[key]
         for i, buf in zip(copied, buffers):
-            buf.copy_(leaves[i])
+            buf.copy_(_local(leaves[i]))
         graph.replay()
         self.replays += 1
         self.copies += len(buffers)
@@ -171,7 +184,8 @@ class jit:
         """``out`` with each output that is a donated input (``aliases``:
         output leaf -> argument leaf) replaced by the caller's tensor at
         that place and, with ``clone``, every other tensor cloned out of
-        the pool; without ``clone`` (the warm-up's outputs, made on its
+        the pool (a DTensor's local tensor, in a DTensor of its layout);
+        without ``clone`` (the warm-up's outputs, made on its
         side stream) the caller's stream is recorded on them, so that
         their memory is not handed out again before the caller's work on
         them is done."""
@@ -183,19 +197,19 @@ class jit:
             elif not isinstance(x, torch.Tensor):
                 continue
             elif clone:
-                outs[j] = x.clone()
+                outs[j] = _like(x, _local(x).clone())
                 self.copies += 1
             else:
-                x.record_stream(caller)
+                _local(x).record_stream(caller)
         return pytree.tree_unflatten(outs, out_spec)
 
     def _capture(self, leaves, copied, donated, spec):
         """((graph, input buffers, the graph's outputs, their aliases of
         donated inputs), the warm-up's outputs) for a new key."""
         leaves = list(leaves)
-        buffers = [leaves[i].clone() for i in copied]
+        buffers = [_local(leaves[i]).clone() for i in copied]
         for i, buf in zip(copied, buffers):
-            leaves[i] = buf
+            leaves[i] = _like(leaves[i], buf)
         args = inspect.BoundArguments(self._sig,
                                       pytree.tree_unflatten(leaves, spec))
 
@@ -234,3 +248,32 @@ def _aliases(out, donated, leaves):
     it is}."""
     return {j: i for j, x in enumerate(pytree.tree_leaves(out))
             for i in donated if x is leaves[i]}
+
+
+def _local(x):
+    """A DTensor's local tensor; a tensor itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(x, local):
+    """``local`` in ``x``'s layout: a DTensor of ``x``'s mesh, placements,
+    global shape and stride around it where ``x`` is a DTensor (no
+    communication: ``local`` is this device's part), else ``local``."""
+    if not isinstance(x, DTensor):
+        return local
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _tensor_key(x, bound):
+    """A tensor leaf's part of the key: its (local) shape, dtype, stride
+    and device, its address where it is ``bound``, and a DTensor's
+    layout."""
+    loc = _local(x)
+    entry = (tuple(loc.shape), loc.dtype, loc.stride(), loc.device,
+             loc.data_ptr() if bound else None)
+    if isinstance(x, DTensor):
+        entry += (x.device_mesh, tuple(x.placements), tuple(x.shape),
+                  x.stride())
+    return entry

@@ -4,8 +4,9 @@ online scheduler in the loop, in PyTorch (mirrors
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 64
 
-Runs on the CUDA device by default; ``serve(..., device="cpu")`` runs the
-plain PyTorch versions of the kernels on the CPU.
+Runs on the CUDA device by default; ``--device cpu`` (``serve(...,
+device="cpu")``) runs the plain PyTorch versions of the kernels on the
+CPU.
 """
 
 from __future__ import annotations
@@ -135,9 +136,11 @@ def main():
     ap.add_argument("--bandwidth", type=float, default=50.0)
     ap.add_argument("--correlation", choices=("low", "medium", "high"),
                     default="medium")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     serve(args.arch, requests=args.requests,
-          bandwidth_mbps=args.bandwidth, correlation=args.correlation)
+          bandwidth_mbps=args.bandwidth, correlation=args.correlation,
+          device=args.device)
 
 
 if __name__ == "__main__":

@@ -87,6 +87,14 @@ def activation_sharding(specs: Dict):
         _state.specs = prev
 
 
+def layout_key():
+    """The active specs in a hashable form, None outside a sharding
+    context: ``core.jit`` keys its captures on it, since a capture
+    records the redistributions that the specs chose."""
+    specs = _specs()
+    return None if specs is None else frozenset(specs.items())
+
+
 def spec_of(name: str):
     """The active spec named ``name`` (None outside a sharding context)."""
     specs = _specs()
@@ -170,11 +178,15 @@ def _to_spec(x, spec):
     if tuple(x.placements) == placements:
         return x
     out = redistribute(x, placements)
-    loc = out.to_local()
-    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+    loc, src = out.to_local(), x.to_local()
+    same = loc.data_ptr() == src.data_ptr() and loc.shape == src.shape
+    if not same and \
+            loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
         # a shard cut out of a gathered tensor (gloo has no all-to-all, so
         # DTensor moves a shard between dims by an all-gather and a chunk)
-        # would keep the whole gather alive: copied out
+        # would keep the whole gather alive: copied out.  Where only the
+        # placements on axes of size 1 changed, ``loc`` is ``x``'s own
+        # local tensor (a group's slice of a stacked weight), not a gather
         out = DTensor.from_local(loc.clone(), mesh, placements,
                                  run_check=False, shape=out.shape,
                                  stride=out.stride())

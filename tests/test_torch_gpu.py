@@ -1036,3 +1036,140 @@ def test_jitted_donated_train_steps_equal_the_eager_ones(cuda, arch):
     for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
                     tree_leaves((theirs, bare_opt.m, bare_opt.v))):
         assert rel(a, w) <= 1e-6
+
+
+# ------------------------------------- core.jit on DTensor steps
+def _dtensor_rel(a, w):
+    a, w = _full(a), _full(w)
+    if torch.equal(a, w):
+        return 0.0
+    return float((a - w).abs().max() / w.abs().max())
+
+
+def test_jitted_dtensor_decode_step_captures_once_and_equals_eager(
+        cuda, card_mesh):
+    """``jit(make_serve_step(cfg))`` on reduced gemma2-2b with DTensor
+    params in the serving layout on the 1x1 card mesh, the hooks live and
+    the position a device tensor: one capture serves all 5 positions, and
+    every step's logits and cache equal the eager DTensor step's on the
+    same cache and tokens bit for bit; the outputs are DTensors of the
+    eager step's layout."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.core.jit import jit
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute, layout_specs,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
+    from repro_torch.training.optim import tree_leaves
+    cfg = get_config("gemma2-2b").reduced()
+    params = M.init_params(cfg, seed=0, device=cuda)
+    B, S, n = 2, 16, 5
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S + n)).astype(np.int32)).to(cuda)
+    serve = ST.make_serve_step(cfg)
+    step = jit(serve)
+    batch = NamedSharding(card_mesh, batch_spec(card_mesh, B, 1))
+    with torch.no_grad(), activation_sharding(
+            layout_specs(cfg, card_mesh, B)), implicit_replication():
+        dp = distribute(params, shard_params(params, card_mesh, cfg,
+                                             serving=True))
+        _, cache = ST.make_prefill_step(cfg, S + n)(
+            dp, distribute(toks[:, :S], batch))
+        pos = torch.full((), S, dtype=torch.int32, device=cuda)
+        for i in range(n):
+            x = distribute(toks[:, S + i:S + i + 1], batch)
+            got, got_cache = step(dp, cache, x, pos)
+            want, cache = serve(dp, cache, x, pos)
+            assert isinstance(got, DTensor)
+            assert got.placements == want.placements
+            assert _dtensor_rel(got, want) == 0.0, i
+            for a, w in zip(tree_leaves(got_cache), tree_leaves(cache)):
+                assert torch.equal(_full(a), _full(w)), i
+            pos = pos + 1
+    assert (step.captures, step.replays) == (1, n)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_jitted_donated_dtensor_train_steps_equal_the_eager_ones(
+        cuda, card_mesh, arch):
+    """Two train steps jitted with params and opt_state donated, on
+    DTensor params in the FSDP layout on the 1x1 card mesh, against two
+    eager donated DTensor steps on a copy of the same weights and the same
+    batches: the loss and every params, m and v leaf bit-equal or within
+    1e-6 (max |d| over max |ref|), ``step == 2``, one capture, and the
+    donated outputs the caller's own DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.core.jit import jit
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.sharding import (NamedSharding, batch_spec,
+                                             distribute, layout_specs,
+                                             shard_params)
+    from repro_torch.models.shardctx import activation_sharding
+    from repro_torch.training.optim import (AdamWConfig, adamw_init,
+                                            tree_leaves)
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device=cuda)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = jit(ST.make_train_step(cfg, opt_cfg, donate=True),
+               donate=("params", "opt_state"))
+    bare = ST.make_train_step(cfg, opt_cfg, donate=True)
+    rng = np.random.default_rng(13)
+    batch = NamedSharding(card_mesh, batch_spec(card_mesh, 2, 1))
+    with activation_sharding(layout_specs(cfg, card_mesh, 2)), \
+            implicit_replication():
+        layout = shard_params(params, card_mesh, cfg)
+        mine, theirs = (distribute(params, layout) for _ in range(2))
+        assert all(a.to_local().data_ptr() != b.to_local().data_ptr()
+                   for a, b in zip(tree_leaves(mine), tree_leaves(theirs)))
+        opt, bare_opt = adamw_init(mine, opt_cfg), adamw_init(theirs,
+                                                               opt_cfg)
+        for _ in range(2):
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(cuda)
+            b = {k: distribute(toks, batch) for k in ("tokens", "labels")}
+            p2, o2, loss, _ = step(mine, opt, b)
+            assert all(a is w for a, w in zip(tree_leaves((p2, o2)),
+                                              tree_leaves((mine, opt))))
+            _, _, want, _ = bare(theirs, bare_opt, b)
+            assert _dtensor_rel(loss, want) <= 1e-6
+    assert int(opt.step) == int(bare_opt.step) == 2
+    assert (step.captures, step.replays) == (1, 1)
+    for a, w in zip(tree_leaves((mine, opt.m, opt.v)),
+                    tree_leaves((theirs, bare_opt.m, bare_opt.v))):
+        assert _dtensor_rel(a, w) <= 1e-6
+
+
+def test_a_failed_dtensor_capture_raises_and_the_next_key_captures(
+        cuda, card_mesh):
+    """A DTensor function that syncs inside the capture raises on the
+    card; the same jit then captures and replays a capture-safe call on
+    another key (another layout), bit-equal to the eager function."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.core.jit import jit
+    syncs = [True]
+
+    def fn(p, x):
+        if syncs[0]:
+            float(x.to_local().sum())
+        return _affine(p, x)
+
+    def dt(t, *placements):
+        return DTensor.from_local(t, card_mesh, placements, run_check=False)
+
+    f = jit(fn)
+    rep = (Replicate(), Replicate())
+    with torch.no_grad(), implicit_replication():
+        p = {k: dt(v, *rep) for k, v in _jit_weights(cuda).items()}
+        local = torch.randn((4, 64), device=cuda)
+        x, y = dt(local, Shard(0), Replicate()), dt(local.clone(), *rep)
+        with pytest.raises(RuntimeError):
+            f(p, x)
+        assert (f.captures, f.replays) == (0, 0)
+        syncs[0] = False
+        got = [f(p, y), f(p, y)]
+        assert (f.captures, f.replays) == (1, 2)
+        for g in got:
+            assert torch.equal(_full(g), _full(_affine(p, y)))

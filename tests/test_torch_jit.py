@@ -1,15 +1,17 @@
 """``repro_torch.core.jit``, the port's counterpart of ``jax.jit``, on the
 CPU: there ``jit(fn)`` calls ``fn`` (no CUDA graph exists on the CPU), so
 a jitted function returns exactly what ``fn`` returns; what it refuses
-(DTensor leaves, leaves that require grad, arguments on two kinds of
-device); and its capture key, which the card's path looks up before it
-captures or replays: static arguments and every tensor leaf's shape,
-dtype, stride and device, and the weights' addresses.  The captures and
+(leaves that require grad, arguments on two kinds of device); and its
+capture key, which the card's path looks up before it captures or
+replays: static arguments, every tensor leaf's shape, dtype, stride and
+device, the weights' addresses, and a DTensor's layout and the active
+``activation_sharding`` specs.  The captures and
 replays themselves run only on the card (``tests/test_torch_gpu.py``).
 """
 
 import functools
 import gc
+import json
 import os
 import subprocess
 import sys
@@ -116,34 +118,108 @@ def test_jit_refuses_arguments_on_two_kinds_of_device():
 
 
 _DTENSOR_SCRIPT = r"""
+import json
 import torch
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.core.jit import jit
 from repro_torch.launch.dryrun import init_fake_group
+from repro_torch.models.shardctx import activation_sharding
 init_fake_group(1)
 mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
-w = DTensor.from_local(torch.ones((4, 4)), mesh, [Replicate()])
-f = jit(lambda p, x: x @ p["w"])
-for args in (({"w": w}, torch.ones((2, 4))),
-             ({"w": torch.ones((4, 4))}, DTensor.from_local(
-                 torch.ones((2, 4)), mesh, [Replicate()]))):
+g = torch.Generator().manual_seed(0)
+
+
+def dt(t, placement=Replicate(), **kw):
+    return DTensor.from_local(t, mesh, [placement], run_check=False, **kw)
+
+
+def fn(p, x, scale=1.0):
+    return {"y": (x @ p["w"] + p["b"]) * scale, "n": x.shape[0]}
+
+
+p = {"w": dt(torch.randn((4, 4), generator=g)),
+     "b": dt(torch.randn((4,), generator=g))}
+x = dt(torch.randn((2, 4), generator=g), Shard(0))
+f = jit(fn)
+out = {}
+got, want = f(p, x, scale=2.0), fn(p, x, scale=2.0)
+out["returns_what_fn_returns"] = (
+    isinstance(got["y"], DTensor) and got["n"] == want["n"] == 2
+    and got["y"].placements == want["y"].placements
+    and torch.equal(got["y"].full_tensor(), want["y"].full_tensor())
+    and (f.captures, f.replays, f.copies) == (0, 0, 0))
+key = f.key(p, x)
+local = x.to_local()
+out["key_holds_placements"] = (
+    key != f.key(p, dt(local)) and key == f.key(p, dt(local, Shard(0))))
+out["key_holds_global_shape"] = key != f.key(p, dt(
+    local, Shard(0), shape=torch.Size((3, 4)), stride=(4, 1)))
+a = {"hidden": ("data", None)}
+with activation_sharding(a):
+    under_a = f.key(p, x)
+with activation_sharding(dict(a)):
+    under_a_again = f.key(p, x)
+with activation_sharding({"hidden": (None, None)}):
+    under_b = f.key(p, x)
+out["key_holds_the_layout"] = (
+    under_a == under_a_again and len({key, under_a, under_b}) == 3)
+p["w"].mul_(2.0)
+same_p = f.key(p, x) == key
+moved_p = f.key(dict(p, w=dt(p["w"].to_local().clone())), x) != key
+copied_x = f.key(p, dt(local.clone(), Shard(0))) == key
+
+
+def step(params, state, x):
+    state["n"].add_(1)
+    return params, state, x.sum()
+
+
+h = jit(step, donate=("state",))
+s = {"n": dt(torch.zeros((2,)))}
+hk = h.key(p, s, x)
+s["n"].add_(1)
+out["bound_by_local_address"] = (
+    same_p and moved_p and copied_x and h.key(p, s, x) == hk
+    and h.key(p, {"n": dt(s["n"].to_local().clone())}, x) != hk
+    and h.key(p, s, dt(local.clone(), Shard(0))) == hk)
+refused = []
+for args in (({"w": dt(torch.ones((4, 4)).requires_grad_()), "b": p["b"]},
+              x), (p, dt(torch.ones((2, 4)).requires_grad_()))):
     try:
         f(*args)
     except TypeError as e:
-        print("refused:", e)
+        refused.append("requires grad" in str(e))
+out["refuses_leaves_that_require_grad"] = refused == [True, True]
+print(json.dumps(out))
 """
 
 
-def test_jit_refuses_dtensor_leaves():
-    """A DTensor weight or input raises ``TypeError`` (a one-rank fake
-    group in a subprocess, so no process group leaks into this one)."""
+@pytest.fixture(scope="module")
+def dtensor_checks():
+    """The checks of ``_DTENSOR_SCRIPT``, run once on a one-rank fake group
+    in a subprocess, so that no process group leaks into this one."""
     r = subprocess.run([sys.executable, "-c", _DTENSOR_SCRIPT],
                        env=dict(os.environ, PYTHONPATH=SRC),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert r.stdout.count("refused: jit takes no DTensor arguments") == 2, \
-        r.stdout
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("check", [
+    "returns_what_fn_returns", "key_holds_placements",
+    "key_holds_global_shape", "key_holds_the_layout",
+    "bound_by_local_address", "refuses_leaves_that_require_grad"])
+def test_jit_takes_dtensor_leaves(dtensor_checks, check):
+    """DTensor leaves, as ``jax.jit`` takes sharded arrays: on CPU
+    DTensors the jitted function returns what ``fn`` returns; a DTensor's
+    key entry holds its placements and global shape beside its local
+    tensor's layout, and every key holds the active
+    ``activation_sharding`` specs (equal specs, equal keys); DTensor
+    weights and donated state are bound by their local tensor's address
+    while a copied DTensor is keyed by its layout only; and a DTensor
+    leaf that requires grad raises ``TypeError``."""
+    assert dtensor_checks[check], check
 
 
 def test_key_holds_the_static_arguments():

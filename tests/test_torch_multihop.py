@@ -145,7 +145,8 @@ def _edge_tier_run(pkg, requests=32):
     off = P.coach_offline_multihop(CO.transformer_graph(cfg, batch=1,
                                                         seq=128),
                                    devices, links)
-    cuts = chip_smoke.group_cuts_from_frontiers(off.decision, cfg)
+    cuts = chip_smoke.example("edge_tier").group_cuts_from_frontiers(
+        off.decision, cfg)
     hop_bits = [int(np.mean(list(b.values()))) if b else 8
                 for b in off.decision.all_hop_bits]
     rt = RT(cfg, params, cuts, default_bits=hop_bits)
@@ -191,9 +192,10 @@ def test_edge_tier_run_gives_the_jax_packages_cuts_bits_and_decisions():
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m", "qwen3-14b"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_chip_smoke_cut_mapping_is_the_examples(arch, reduced):
-    """``chip_smoke.py`` keeps its own copy of the example's frontier ->
-    group-cut mapping (the example imports JAX): the same cuts on the
-    same three-tier decision."""
+    """``chip_smoke.py`` plans phase 9 through the example's twin
+    (``examples_torch/edge_tier.py``; the example imports JAX), whose
+    frontier -> group-cut mapping gives the example's cuts on the same
+    three-tier decision."""
     edge_tier = _edge_tier()
     cfg = jget_config(arch)
     if reduced:
@@ -202,8 +204,9 @@ def test_chip_smoke_cut_mapping_is_the_examples(arch, reduced):
         JCO.transformer_graph(cfg, batch=1, seq=128),
         tuple(getattr(JCO, d) for d in DEVICES),
         (JCO.WIFI_5GHZ(50.0), JCO.ETH_LAN()))
-    assert chip_smoke.group_cuts_from_frontiers(off.decision, cfg) == \
-        edge_tier.group_cuts_from_frontiers(off.decision, cfg)
+    assert chip_smoke.example("edge_tier").group_cuts_from_frontiers(
+        off.decision, cfg) == edge_tier.group_cuts_from_frontiers(
+            off.decision, cfg)
 
 
 def test_chip_smoke_phase_9_runs_on_the_cpu():

@@ -104,13 +104,17 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_serve_cli_is_the_reference_cli(monkeypatch):
     """``main()`` parses the reference's options and hands them to
-    ``serve`` (which then runs on the default CUDA device)."""
+    ``serve``, on the CUDA device unless ``--device`` names another."""
     seen = {}
     monkeypatch.setattr(T, "serve", lambda arch, **kw: seen.update(
         arch=arch, **kw))
-    monkeypatch.setattr("sys.argv", ["serve", "--arch", "qwen3-14b",
-                                     "--requests", "5", "--bandwidth", "20",
-                                     "--correlation", "high"])
+    argv = ["serve", "--arch", "qwen3-14b", "--requests", "5",
+            "--bandwidth", "20", "--correlation", "high"]
+    want = {"arch": "qwen3-14b", "requests": 5, "bandwidth_mbps": 20.0,
+            "correlation": "high"}
+    monkeypatch.setattr("sys.argv", argv)
     T.main()
-    assert seen == {"arch": "qwen3-14b", "requests": 5,
-                    "bandwidth_mbps": 20.0, "correlation": "high"}
+    assert seen == dict(want, device="cuda")
+    monkeypatch.setattr("sys.argv", argv + ["--device", "cpu"])
+    T.main()
+    assert seen == dict(want, device="cpu")
