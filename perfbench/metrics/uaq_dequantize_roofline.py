@@ -1,0 +1,18 @@
+"""K2 ``uaq_dequantize`` (``dequant_kernel``): the least time of one
+call at the served shape (``harness/work.py``) over its device time a
+call in the profiled stretch, %."""
+
+from perfbench.harness.trace import kernel_time
+from perfbench.harness.work import roofline_s
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    kt = kernel_time(run.trace, "dequant_kernel")
+    if kt is None or kt[1] == 0:
+        return None
+    seconds, calls = kt
+    bound = roofline_s("uaq_dequantize", 1, run.seq_len, run.d_model, 0,
+                       run.wire_bits)
+    return 100.0 * bound / (seconds / calls)

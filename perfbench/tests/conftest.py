@@ -1,0 +1,12 @@
+"""The benchmark's CPU tests: ``python -m pytest perfbench/tests`` from
+the repository's root.  Tests that need the card carry the ``gpu``
+marker and skip inside a fixture."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+for p in (os.path.join(ROOT, "src"), ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
