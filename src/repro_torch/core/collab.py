@@ -38,6 +38,7 @@ from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import runtime as RT
 
 
 # ---------------------------------------------------------------- splitting
@@ -202,22 +203,41 @@ class CollabRuntime:
         pack + semantic probe in a single read of the boundary activation
         (``kernels.boundary``), returning ``(WirePacket, BoundaryProbe)``
         instead — the probe outputs replace the raw activation, which the
-        fused pass consumes."""
-        if k > 0:
-            assert isinstance(x, WirePacket) and x.hop == k - 1, \
-                f"segment {k} consumes the hop-{k - 1} packet"
-            x = x.dequantize()
-        h = self._seg_fns[k](self.p_segments[k], x)
-        if k == self.n_hops:
-            return h
-        if centers is not None:
-            bits = bits or self.default_bits_per_hop[k]
-            payload, scale, zp, feat, sep, best, sims = \
-                KOPS.boundary_pass(h, centers, bits)
-            pkt = WirePacket(payload, scale, zp, bits, hop=k,
-                             channels=self.cfg.d_model)
-            return pkt, BoundaryProbe(feat, sep, best, sims)
-        return self._quantize(h, k, bits), h
+        fused pass consumes.
+
+        While ``obs.runtime`` records, the step is a ``segment`` span
+        (argument ``k``) around the ``dequantize`` (K2), ``boundary`` (K1)
+        or ``quantize`` (K3) launch and the segment's ``jit`` call."""
+        rec = RT.recording()
+        if rec is not None:
+            rec.begin("segment", k)
+        try:
+            if k > 0:
+                assert isinstance(x, WirePacket) and x.hop == k - 1, \
+                    f"segment {k} consumes the hop-{k - 1} packet"
+                if rec is not None:
+                    rec.step("dequantize")
+                x = x.dequantize()
+                if rec is not None:
+                    rec.step(None)
+            h = self._seg_fns[k](self.p_segments[k], x)
+            if k == self.n_hops:
+                return h
+            if centers is not None:
+                bits = bits or self.default_bits_per_hop[k]
+                if rec is not None:
+                    rec.step("boundary")
+                payload, scale, zp, feat, sep, best, sims = \
+                    KOPS.boundary_pass(h, centers, bits)
+                pkt = WirePacket(payload, scale, zp, bits, hop=k,
+                                 channels=self.cfg.d_model)
+                return pkt, BoundaryProbe(feat, sep, best, sims)
+            if rec is not None:
+                rec.step("quantize")
+            return self._quantize(h, k, bits), h
+        finally:
+            if rec is not None:
+                rec.end()
 
     def segment_handle(self, k: int, probe_centers=None, on_probe=None):
         """Bound per-segment callable for hop-queue workers.

@@ -29,7 +29,11 @@ compiled program whole.  Here, on CUDA arguments, ``jit(fn)`` captures
   outputs and does not replay: the warm-up already updated the donated
   tensors once, and a replay would update them a second time;
 * ``captures``, ``replays`` and ``copies`` (input copies and output
-  clones, each one launch) count what each ``jit`` did.
+  clones, each one launch) count what each ``jit`` did;
+* while ``obs.runtime`` records, a call is a ``jit`` span around
+  ``jit.key`` (flatten, bind, key), ``jit.copy_in``, ``jit.replay``
+  (with the replay's device interval) and ``jit.clone_out``, and
+  ``jit.capture`` for a key's first call.
 
 DTensor leaves are taken, as ``jax.jit`` takes sharded arrays:
 
@@ -65,6 +69,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.models.shardctx import layout_key
+from repro_torch.obs import runtime as RT
 
 BOUND = ("p", "params")  # the arguments bound by address
 
@@ -159,26 +164,45 @@ class jit:
         return key, kinds, copied, donated, leaves, spec
 
     def __call__(self, *args, **kwargs):
-        key, kinds, copied, donated, leaves, spec = self._flatten(args,
-                                                                  kwargs)
-        if kinds <= {"cpu"}:
-            return self.fn(*args, **kwargs)
-        if kinds != {"cuda"}:
-            raise ValueError(f"jit: arguments on {sorted(kinds)}")
-        if key not in self._graphs:
-            self._graphs[key], first = self._capture(leaves, copied,
-                                                     donated, spec)
-            if donated:
-                return self._hand_back(first, _aliases(first, donated,
-                                                       leaves), leaves,
-                                       clone=False)
-        graph, buffers, out, aliases = self._graphs[key]
-        for i, buf in zip(copied, buffers):
-            buf.copy_(_local(leaves[i]))
-        graph.replay()
-        self.replays += 1
-        self.copies += len(buffers)
-        return self._hand_back(out, aliases, leaves, clone=True)
+        rec = RT.recording()
+        if rec is not None:
+            rec.begin("jit")
+            rec.step("jit.key")
+        try:
+            key, kinds, copied, donated, leaves, spec = self._flatten(args,
+                                                                      kwargs)
+            if kinds <= {"cpu"}:
+                if rec is not None:
+                    rec.step("jit.replay")
+                return self.fn(*args, **kwargs)
+            if kinds != {"cuda"}:
+                raise ValueError(f"jit: arguments on {sorted(kinds)}")
+            if key not in self._graphs:
+                if rec is not None:
+                    rec.step("jit.capture")
+                self._graphs[key], first = self._capture(leaves, copied,
+                                                         donated, spec)
+                if donated:
+                    return self._hand_back(first, _aliases(first, donated,
+                                                           leaves), leaves,
+                                           clone=False)
+            graph, buffers, out, aliases = self._graphs[key]
+            if rec is not None:
+                rec.step("jit.copy_in")
+            for i, buf in zip(copied, buffers):
+                buf.copy_(_local(leaves[i]))
+            if rec is None:
+                graph.replay()
+            else:
+                rec.replay(graph)
+            self.replays += 1
+            self.copies += len(buffers)
+            if rec is not None:
+                rec.step("jit.clone_out")
+            return self._hand_back(out, aliases, leaves, clone=True)
+        finally:
+            if rec is not None:
+                rec.end()
 
     def _hand_back(self, out, aliases, leaves, clone):
         """``out`` with each output that is a donated input (``aliases``:

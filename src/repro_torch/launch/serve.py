@@ -7,6 +7,14 @@ online scheduler in the loop, in PyTorch (mirrors
 Runs on the CUDA device by default; ``--device cpu`` (``serve(...,
 device="cpu")``) runs the plain PyTorch versions of the kernels on the
 CPU.
+
+The latency, throughput and bubble figures it prints are modelled from
+the cost profiles (Jetson NX end, A6000 cloud, the WiFi link), not
+measured.  ``--trace PATH`` (``serve(..., trace_path=PATH)``) records the
+runtime's wall-clock spans (``obs.runtime``) over the served tasks, prints
+their medians a task beside the modelled figures, and writes them to
+``PATH`` as Chrome trace-event JSON on the Unix-epoch clock, to open
+beside a ``torch.profiler`` export.
 """
 
 from __future__ import annotations
@@ -27,19 +35,23 @@ from repro_torch.core.costs import (A6000_SERVER, JETSON_NX, WIFI_5GHZ,
 from repro_torch.core.partitioner import coach_offline
 from repro_torch.data.pipeline import CorrelatedTaskStream
 from repro_torch.models import model as M
+from repro_torch.obs import runtime as RT
 from repro_torch.obs.bubbles import attribute, chain_resources
-from repro_torch.obs.export import text_summary
+from repro_torch.obs.export import text_summary, write_runtime_trace
 from repro_torch.obs.trace import TraceRecorder
 from repro_torch.serving.engine import CoachEngine, EngineConfig
 
 
 def serve(arch: str, *, smoke: bool = True, requests: int = 200,
           bandwidth_mbps: float = 50.0, correlation: str = "medium",
-          seed: int = 0, verbose: bool = True, device="cuda", params=None):
+          seed: int = 0, verbose: bool = True, device="cuda", params=None,
+          trace_path=None):
     """``params`` (the port's parameter dict on ``device``, e.g. from
     ``models.model.params_from_numpy``) replaces the seeded random
     weights; the model then runs at their depth (their group count times
-    the pattern's length), so a depth-cut model serves too."""
+    the pattern's length), so a depth-cut model serves too.
+    ``trace_path`` records the served tasks' wall-clock spans and writes
+    them there (see the module's docstring)."""
     dev = require_device(device)
     cfg = get_config(arch)
     if smoke:
@@ -107,10 +119,19 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 200,
                 pr)
 
     tasks = stream.tasks(requests)
+    if trace_path is not None:
+        RT.enable().clear()
     t0 = time.time()
-    stats = engine.run_stream(tasks, arrival_period=off.times.max_stage,
-                              classify=classify)
+    try:
+        stats = engine.run_stream(tasks, arrival_period=off.times.max_stage,
+                                  classify=classify)
+    finally:
+        if trace_path is not None:
+            RT.disable()
     wall = time.time() - t0
+    spans = RT.RECORDER.spans() if trace_path is not None else []
+    if trace_path is not None:
+        write_runtime_trace(trace_path, spans, RT.RECORDER.offset_ns)
     if verbose:
         pr = stats.pipeline
         print(f"arch={cfg.name} cut_group={cut_group}/{cfg.num_groups} "
@@ -121,12 +142,30 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 200,
         print(f"latency mean={pr.mean_latency*1e3:.2f}ms p99="
               f"{pr.p99_latency*1e3:.2f}ms thpt={pr.throughput:.1f} it/s "
               f"cloud_bubbles={pr.bubble_fraction('cloud'):.2%} "
-              f"(wall {wall:.1f}s)")
+              f"(wall {wall:.1f}s; latency, throughput and bubbles "
+              f"modelled from the cost profiles, not measured)")
+        if spans:
+            print(measured_summary(spans, [t.id for t in tasks]))
         att = attribute(rec, resources=chain_resources(
             pr.n_hops, pr.pool_sizes or None))
         print("bubble attribution (why each resource idled):")
         print(text_summary(att))
     return stats
+
+
+def measured_summary(spans, tasks) -> str:
+    """The medians a task of the runtime's wall-clock spans: the
+    scheduler's own time (``decide`` less ``classify``, ``plan_for``,
+    ``account``), the host time in ``segment`` and in ``jit`` spans, and
+    the device time of the graph replays (on a card)."""
+    def med(names, less=(), value=RT.host_ns):
+        ms = RT.median_ms(spans, tasks, names, less, value)
+        return "-" if ms is None else f"{ms:.3f}ms"
+
+    sched = med(("decide", "plan_for", "account"), less=("classify",))
+    return (f"measured (wall-clock spans, median a task): scheduler {sched} "
+            f"segment {med(('segment',))} jit {med(('jit',))} "
+            f"graph device {med(('jit.replay',), value=RT.device_ns)}")
 
 
 def main():
@@ -137,10 +176,13 @@ def main():
     ap.add_argument("--correlation", choices=("low", "medium", "high"),
                     default="medium")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record the runtime's wall-clock spans and write "
+                         "them to PATH (Chrome trace-event JSON)")
     args = ap.parse_args()
     serve(args.arch, requests=args.requests,
           bandwidth_mbps=args.bandwidth, correlation=args.correlation,
-          device=args.device)
+          device=args.device, trace_path=args.trace)
 
 
 if __name__ == "__main__":

@@ -130,3 +130,33 @@ def text_summary(attribution: Attribution,
                  f"|busy + bubbles - horizon| = "
                  f"{attribution.max_conservation_error():.2e} s")
     return "\n".join(lines)
+
+
+# ---- the port's own: wall-clock spans of its runtime (obs/runtime.py)
+def write_runtime_trace(path, spans, offset_ns: int) -> dict:
+    """Write ``obs.runtime`` spans to ``path`` as trace-event JSON on the
+    Unix-epoch clock (``ts`` in microseconds; ``offset_ns`` takes a span's
+    stamps to the epoch), the clock of a ``torch.profiler`` export, and
+    return the document.  One row for the host, on which the viewer nests
+    spans by time; each event's args hold the task, the parent, the span's
+    argument and a replay's device interval (ms)."""
+    pid = 2  # beside to_chrome_trace's pipeline, pid 1
+    events = [{"name": "process_name", "ph": "M", "pid": pid,
+               "args": {"name": "repro_torch runtime (wall clock)"}},
+              {"name": "thread_name", "ph": "M", "pid": pid, "tid": 1,
+               "args": {"name": "host"}}]
+    for s in spans:
+        args = {k: v for k, v in (("id", s.id), ("parent", s.parent),
+                                  ("task", s.task), ("arg", s.arg),
+                                  ("device_ms", s.device_ms))
+                if v is not None}
+        events.append({"name": s.name, "cat": "runtime", "ph": "X",
+                       "pid": pid, "tid": 1, "ts": (s.t0 + offset_ns) / 1e3,
+                       "dur": (s.t1 - s.t0) / 1e3, "args": args})
+    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return doc
+
+
+__all__ += ["write_runtime_trace"]

@@ -23,6 +23,7 @@ from repro_torch.core import sim
 from repro_torch.core.costs import DeviceProfile, LinkProfile
 from repro_torch.core.pipeline import PipelineResult, TaskPlan
 from repro_torch.core.schedule import StageTimes
+from repro_torch.obs import runtime as RT
 
 
 @dataclasses.dataclass
@@ -218,6 +219,7 @@ class EngineBase:
         f = np.asarray(feats)
         return f if f.ndim == 2 else f[None]
 
+    @RT.decide_span
     def decide(self, task, bw: float, classify):
         """One COACH online decision (Eq. 10/11).  ``classify(task) ->
         (features, predicted_label)``: the caller runs the real model
@@ -247,6 +249,7 @@ class EngineBase:
                                   probe=probes[0] if probes else None)
         return dec, feats, pred
 
+    @RT.plan_span
     def plan_for(self, dec: ON.OnlineDecision, bw: float,
                  hop_bits: Optional[Sequence[int]] = None
                  ) -> Tuple[TaskPlan, float]:
@@ -291,6 +294,7 @@ class EngineBase:
             rx_offsets=st.rx_offsets, exit_hop=dec.exit_hop,
             t_fixed=bf if bf else None), wire_bits
 
+    @RT.account_span
     def account(self, dec: ON.OnlineDecision, feats, pred, task,
                 wire_bits: float, acc: dict) -> None:
         """Shared decision accounting + label feedback (identical in the

@@ -869,6 +869,98 @@ def test_jit_outputs_do_not_alias(cuda):
     assert torch.equal(y1, keep) and torch.equal(y2, _affine(p, x2))
 
 
+def test_recorded_replays_carry_their_device_interval(cuda, monkeypatch):
+    """While ``obs.runtime`` records from ``enable()``, each replay is a
+    ``jit.replay`` span whose device interval (two CUDA events around
+    ``graph.replay()``) is read without a sync of its own: when the spans
+    are read, or, once ``READ_AT`` replays wait, those done at a close of
+    a span with no parent.  The events are reused."""
+    from repro_torch.core.jit import jit
+    from repro_torch.obs import runtime as RT
+    monkeypatch.setattr(RT, "READ_AT", 16)
+    f = jit(_affine)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    n = RT.READ_AT + 4
+    rec = RT.enable()
+    rec.clear()
+    try:
+        with torch.no_grad():
+            for _ in range(n):  # the first call captures, then replays
+                f(p, x)
+                torch.cuda.synchronize()
+            rec.close(rec.open("tick"))
+            assert 0 < len(rec._pending) < RT.READ_AT
+            assert len(rec._events) + len(rec._pending) <= RT.READ_AT
+    finally:
+        RT.disable()
+    spans = rec.spans()
+    rec.clear()
+    assert not rec._pending
+    assert [s.name for s in spans if s.parent is None] == \
+        ["jit"] * n + ["tick"]
+    replays = [s for s in spans if s.name == "jit.replay"]
+    assert len(replays) == n == f.replays
+    assert all(s.device_ms is not None and 0 < s.device_ms < 1e3
+               for s in replays)
+    first = next(s for s in spans if s.name == "jit")
+    assert [s.name for s in spans if s.parent == first.id] == \
+        ["jit.key", "jit.capture", "jit.copy_in", "jit.replay",
+         "jit.clone_out"]
+
+
+def test_a_profiled_replay_has_no_device_interval(cuda):
+    """Under a ``torch.profiler`` profile without ``enable()`` the recorder
+    keeps the replay's host span and makes no CUDA event: the profile has
+    the device's own trace."""
+    from repro_torch.core.jit import jit
+    from repro_torch.obs import runtime as RT
+    f = jit(_affine)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    f(p, x)
+    RT.RECORDER.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        f(p, x)
+        f(p, x)
+        torch.cuda.synchronize()
+        assert not RT.RECORDER._pending
+    spans = RT.RECORDER.spans()
+    RT.RECORDER.clear()
+    assert [s.name for s in spans if s.name != "gc"] == ["jit.replay"] * 2
+    assert all(s.device_ms is None for s in spans)
+
+
+def test_a_replay_still_running_is_read_later(cuda):
+    """A device interval whose events have not completed is left for a
+    later read, which waits for it."""
+    from repro_torch.core.jit import jit
+    from repro_torch.obs import runtime as RT
+
+    def slow(p, x):
+        torch.cuda._sleep(100_000_000)  # ~50 ms of device time
+        return x * p["w"][0, 0]
+
+    f = jit(slow)
+    p = _jit_weights(cuda)
+    x = torch.randn((4, 64), device=cuda)
+    f(p, x)
+    torch.cuda.synchronize()
+    rec = RT.enable()
+    rec.clear()
+    try:
+        f(p, x)
+        rec._poll(wait=False)
+        assert len(rec._pending) == 1  # still running: not read
+    finally:
+        RT.disable()
+    replay, = [s for s in rec.spans() if s.name == "jit.replay"]
+    rec.clear()
+    assert replay.device_ms > 10.0 and not rec._pending
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
                                   "mixtral-8x7b"])
 def test_captured_generate_matches_the_eager_loop(cuda, arch):

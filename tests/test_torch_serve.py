@@ -104,7 +104,8 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_serve_cli_is_the_reference_cli(monkeypatch):
     """``main()`` parses the reference's options and hands them to
-    ``serve``, on the CUDA device unless ``--device`` names another."""
+    ``serve``, on the CUDA device unless ``--device`` names another, and
+    ``--trace PATH``, the port's own, as ``trace_path``."""
     seen = {}
     monkeypatch.setattr(T, "serve", lambda arch, **kw: seen.update(
         arch=arch, **kw))
@@ -114,7 +115,11 @@ def test_serve_cli_is_the_reference_cli(monkeypatch):
             "correlation": "high"}
     monkeypatch.setattr("sys.argv", argv)
     T.main()
-    assert seen == dict(want, device="cuda")
+    assert seen == dict(want, device="cuda", trace_path=None)
     monkeypatch.setattr("sys.argv", argv + ["--device", "cpu"])
     T.main()
-    assert seen == dict(want, device="cpu")
+    assert seen == dict(want, device="cpu", trace_path=None)
+    # the port's own option: the runtime's wall-clock spans to a file
+    monkeypatch.setattr("sys.argv", argv + ["--trace", "spans.json"])
+    T.main()
+    assert seen == dict(want, device="cuda", trace_path="spans.json")
