@@ -19,7 +19,10 @@ Phases (any failure exits non-zero before the last line):
      kernels' outputs bit-equal across two
      calls, after 50 replays of a captured call (the fused kernel's
      arrival counters go back to 0), and when two graphs captured on one
-     stream are replayed out of order and at once;
+     stream are replayed out of order and at once; the SSD mixer (K5,
+     ``kernels/ssd.py``) against ``models.ssm.mixer_plain`` on the same
+     inputs at mamba2-130m's widths, (1, 8) and (1, 128) tokens and two
+     chunks from a given state with the final state returned;
   3. time each kernel and its plain version at 8 and 4 bits (CUDA graphs
      of back-to-back launches, CUDA events, median) beside the
      bytes/operations bound, at serve's shape on gemma2-2b, mamba2-130m
@@ -27,7 +30,8 @@ Phases (any failure exits non-zero before the last line):
      launch per call of the fused boundary, quantize and probe (one
      kernel node in a graph captured from a call, beside what the fused
      boundary's counters add there, and no other kernel under the
-     profiler);
+     profiler); the SSD mixer and its plain chain at (1, 8, 768) and
+     (1, 128, 768) beside the mixer's own bytes / operations bound;
   4. serve 24 requests on full-width gemma2-2b (random weights from a
      seed) through ``repro_torch.launch.serve.serve`` and require the
      fused boundary and dequantize kernels to have launched;
@@ -41,7 +45,10 @@ Phases (any failure exits non-zero before the last line):
      launches from the counters and the eager request's kernel nodes;
      profile where its device time goes, and diff the kernel-name
      histograms of two more profiles of it;
-  6. phases 4 and 5 on full-width mamba2-130m (24 layers);
+  6. phases 4 and 5 on full-width mamba2-130m (24 layers), every
+     ``mamba_forward`` call of both on the fused SSD mixer
+     (``models.ssm.PATHS``), and in serve as many launches of each of its
+     kernels as calls;
   7. phases 4 and 5 on full-width mixtral-8x7b cut to 4 of its 32 layers
      (the 32 take ~187 GB in fp32, more than one card holds);
   8. greedy ``generate`` of 32 tokens after a 64-token prompt on that
@@ -191,6 +198,17 @@ REPLACES = {
     "uaq_quantize": "src/repro/kernels/uaq.py:77",
     "semantic_probe": "src/repro/kernels/semantic_cache.py:79",
 }
+# K5, the mamba2 SSD mixer (kernels/ssd.py), replaces no pallas_call: the
+# JAX package writes the chain in jnp (mamba_forward there) and XLA fuses it
+SSD_SOURCE = f"{CSRC}/ssd_mixer.cu"
+SSD_PLAIN = "src/repro/models/ssm.py:152"
+SSD_KERNELS = ("ssd_prep", "ssd_chunk", "ssd_state", "gated_rmsnorm")
+# (B, S, ssm_chunk, h0 given and the final state returned): serve's two
+# task lengths, and two chunks of 256 (the second padded) from a state
+SSD_CHECKS = [(1, 8, 256, False), (1, 128, 256, False), (1, 300, 256, True)]
+# K5 against its plain chain: max |d| over the chain's max |value| (sums
+# over the state and the chunk run in another order)
+SSD_RTOL = 1e-4
 
 
 def log(*a):
@@ -572,6 +590,136 @@ def time_kernels(torch, K, shape, inner, outer, bits=8):
     del q
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ K5
+def ssd_inputs(torch, cfg, B, S, seed):
+    """A mamba2 block of ``cfg`` on the card, its biases, D and norm scale
+    drawn away from 0 and 1 (which would hide terms), and its five
+    projections' outputs for B x S random inputs."""
+    from repro_torch.models import ssm as SSM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = SSM.init_mamba(cfg, gen, torch.float32, "cuda")
+    for k in ("conv_bx", "conv_bB", "conv_bC", "D", "norm_scale"):
+        p[k] = p[k] + 0.1 * torch.randn(p[k].shape, generator=gen,
+                                        device="cuda")
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    acts = tuple(x @ p[k] for k in ("in_z", "in_x", "in_B", "in_C",
+                                    "in_dt"))
+    return p, acts
+
+
+def check_ssd_mixer(torch, cfg):
+    """K5 against ``models.ssm.mixer_plain`` on the same inputs at each of
+    SSD_CHECKS: the out_proj input and, where asked for, the final state
+    within SSD_RTOL; one launch of each kernel a call (the state kernel
+    only with a state).  Returns the largest max abs error."""
+    from repro_torch.kernels import _build as KB
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import ssm as SSM
+    worst = 0.0
+    for B, S, chunk, state in SSD_CHECKS:
+        c = dataclasses.replace(cfg, ssm_chunk=chunk)
+        p, acts = ssd_inputs(torch, c, B, S, seed=S)
+        h0 = 0.5 * torch.randn((B, c.ssm_heads, c.ssm_head_dim,
+                                c.ssm_state), device="cuda") \
+            if state else None
+        with torch.no_grad():
+            KB.LAUNCHES.clear()
+            got, ghT = SSD.ssd_mixer(*acts, p, chunk=chunk, eps=c.norm_eps,
+                                     h0=h0, want_state=state)
+            torch.cuda.synchronize()
+            launches = dict(KB.LAUNCHES)
+            want, whT = SSM.mixer_plain(p, *acts, c, h0)
+        assert launches == {k: 1 for k in SSD_KERNELS
+                            if state or k != "ssd_state"}, launches
+        assert (ghT is not None) == state
+        errs = {}
+        for what, g, w in (("out", got, want), ("hT", ghT, whT)):
+            if g is None:
+                continue
+            errs[what] = max_err(g, w)
+            top = float(w.abs().max())
+            assert errs[what] <= SSD_RTOL * top, \
+                f"ssd_mixer {what} max err {errs[what]} over the plain " \
+                f"chain's max {top} at (B, S, chunk) {(B, S, chunk)}"
+            worst = max(worst, errs[what])
+        log(f"  ssd_mixer (B, S, chunk) {(B, S, chunk)}"
+            f"{' from h0, state returned' if state else ''}: max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; launches {launches}")
+    return worst
+
+
+def ssd_work(cfg, B, S, state=False, h0=False):
+    """(bytes moved, fp32 operations) of one K5 call at mamba2 ``cfg``'s
+    widths, fp32: the mixer's own inputs read once (z, xr, Br, Cr, dt,
+    the block's conv weights and biases, norm_scale, A_log, D, dt_bias,
+    and h0 when given) and its outputs written once (out_proj's input,
+    and the final state when ``state``); two operations an FMA of the
+    convs, of C.B^T and (CB o L).(x dt) over the causal pairs of each
+    chunk's real rows, and with a state of each row's state term B^T (x
+    dt) and, in chunks that start from a state, of C.h.  The traffic
+    through the kernels' workspaces is left out: it is the design's, not
+    the mixer's."""
+    di, N, H, P, K = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
+                      cfg.ssm_head_dim, cfg.ssm_conv)
+    Q = min(cfg.ssm_chunk, S)
+    C = di + 2 * N  # the conv's channels
+    hbytes = B * H * P * N
+    nbytes = 4 * (B * S * (2 * di + 2 * N + H) + (K + 1) * C + di + 3 * H
+                  + B * S * di + (hbytes if h0 else 0)
+                  + (hbytes if state else 0))
+    rows = [min(Q, S - c) for c in range(0, S, Q)]
+    pairs = B * sum(r * (r + 1) // 2 for r in rows)
+    ops = 2 * (B * S * C * K + pairs * (N + H * P))
+    if state:
+        from_state = S if h0 else S - rows[0]
+        ops += 2 * B * (S + from_state) * H * P * N
+    return nbytes, ops
+
+
+def time_ssd_mixer(torch, cfg, inner, outer):
+    """K5 and its plain chain at (1, S, d_model), S = 8 and 128: device ms
+    a call (``device_ms``) beside ``ssd_work``'s bound."""
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import ssm as SSM
+    out = {}
+    for S in (8, 128):
+        p, acts = ssd_inputs(torch, cfg, 1, S, seed=S)
+        nbytes, ops = ssd_work(cfg, 1, S)
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: SSD.ssd_mixer(
+                *acts, p, chunk=cfg.ssm_chunk, eps=cfg.norm_eps), inner,
+                outer)
+            plain_ms = device_ms(torch, lambda: SSM.mixer_plain(
+                p, *acts, cfg), inner, outer)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+        out[S] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                  >= ops / FP32_OPS_PER_S else "operations",
+                  "shape": [1, S, cfg.d_model]}
+        log(f"  ssd_mixer (1, {S}, {cfg.d_model}): kernels {ms * 1e3:8.2f} "
+            f"us  plain {plain_ms * 1e3:8.2f} us  bound "
+            f"{bound * 1e3:6.3f} us ({out[S]['bound_by']}, "
+            f"{100 * bound / ms:.1f}% of bound)")
+    return out
+
+
+def check_mixer_paths(paths, launches, what):
+    """Every ``mamba_forward`` call that ``paths`` (``ssm.PATHS``) counted
+    took the fused mixer; with ``launches``, as many launches of each
+    kernel but the state kernel as calls."""
+    paths = {k: v for k, v in paths.items() if v}
+    log(f"{what}: mamba_forward paths {paths}")
+    assert set(paths) == {"fused"}, \
+        f"{what}: a mamba2 mixer call ran the plain chain on the card: " \
+        f"{paths}"
+    if launches is not None:
+        for name in ("ssd_prep", "ssd_chunk", "gated_rmsnorm"):
+            assert launches.get(name, 0) == paths["fused"], \
+                f"{what}: {launches.get(name, 0)} {name} launches for " \
+                f"{paths['fused']} fused mixer calls"
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -1958,6 +2106,7 @@ def main() -> int:
     from repro_torch.kernels import _build as KB
     from repro_torch.kernels import boundary, ref, semantic_cache, uaq
     from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
     K = {"ref": ref, "boundary": boundary, "uaq": uaq,
          "semantic_cache": semantic_cache}
 
@@ -1974,7 +2123,9 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     t0 = time.time()
     errs = check_kernels(torch, K)
-    log(f"all kernels agree ({time.time() - t0:.1f}s); max abs err {errs}")
+    ssd_err = check_ssd_mixer(torch, get_config("mamba2-130m"))
+    log(f"all kernels agree ({time.time() - t0:.1f}s); max abs err {errs}, "
+        f"ssd_mixer {ssd_err:.3g}")
 
     log("== phase 3: timing (device time per call)")
     t_serve = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20)
@@ -1986,6 +2137,8 @@ def main() -> int:
                for D in (768, 4096)}
     t_width4 = {D: time_kernels(torch, K, (1, 8, D, 16), inner=200, outer=20,
                                 bits=4) for D in (768, 4096)}
+    t_ssd = time_ssd_mixer(torch, get_config("mamba2-130m"), inner=200,
+                           outer=20)
     # the kernels K1 / K3 / K4 launch per call at serve's shape: one each
     x = torch.randn(SERVE_SHAPE[:3], device="cuda")
     c = torch.randn((SERVE_SHAPE[3], SERVE_SHAPE[2]), device="cuda")
@@ -2035,11 +2188,17 @@ def main() -> int:
         params = None  # the previous phase's weights go first
         torch.cuda.empty_cache()
         params = init_params(torch, M, cfg)
+        SSM.PATHS.clear()
         lw, wall = serve_check(torch, name, params)
         add_launches(lw)
+        if name == "mamba2-130m":
+            check_mixer_paths(SSM.PATHS, lw, "serve")
+        SSM.PATHS.clear()
         lr, res, drift = runtime_check(torch, cfg, params,
                                        SPLIT_BOUND_SCALED)
         add_launches(lr)
+        if name == "mamba2-130m":
+            check_mixer_paths(SSM.PATHS, None, "runtime")
         results[name] = dict(res, layers=cfg.num_layers, serve_wall_s=wall,
                              profiler_drift=drift)
 
@@ -2195,6 +2354,18 @@ def main() -> int:
             **{f"d{D}_int4": dict(t[name], shape=[1, 8, D, 16], bits=4)
                for D, t in t_width4.items()},
         })
+    assert launches.get("ssd_prep", 0) > 0, "the SSD mixer never launched"
+    kernels.append({
+        "name": "ssd_mixer", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": f"no pallas_call: XLA fuses {SSD_PLAIN}'s chain",
+        "launches": int(launches["ssd_prep"]),
+        "launches_by_kernel": {k: int(launches.get(k, 0))
+                               for k in SSD_KERNELS},
+        "max_abs_err": ssd_err, "ms": t_ssd[8]["ms"],
+        "plain_ms": t_ssd[8]["plain_ms"], "bound_ms": t_ssd[8]["bound_ms"],
+        "bound_by": t_ssd[8]["bound_by"], "library_ms": None,
+        "shape": t_ssd[8]["shape"], "s128": t_ssd[128],
+    })
     log(json.dumps({"phases": results}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

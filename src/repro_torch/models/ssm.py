@@ -9,18 +9,28 @@ equivalence with the sequential recurrence.
 
 from __future__ import annotations
 
+import collections
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import _build as KB
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import column, pad_seq, residual, row
 from repro_torch.models.shardctx import (constrain, grad_in_layout,
                                          on_shards, reshape)
 
 SSM_GROUPS = 1  # n_groups for the B/C projections
+
+# the path of each ``mamba_forward`` call, one count a call: "fused" (the
+# SSD mixer kernels, ``kernels/ssd.py``) or "plain.<reason>" (the chain
+# ``mixer_plain``; the reasons are ``plain_reason``'s).  Inside a jitted
+# function it counts at capture.
+PATHS: collections.Counter = collections.Counter()
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -197,20 +207,60 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, h0=None):
     return y, h
 
 
-def mamba_forward(params, x, cfg: ModelConfig, h0=None,
-                  return_cache: bool = False):
-    """Full-sequence mamba2 block.  x: (B,S,D)."""
-    Bsz, S, _ = x.shape
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def plain_reason(params, acts, cfg: ModelConfig,
+                 h0=None) -> Optional[str]:
+    """None where the fused SSD mixer takes a ``mamba_forward`` call with
+    the projections' outputs ``acts`` (z, xr, Br, Cr, dt), else why the
+    plain chain runs it, the cases where the kernels cannot: "dtensor" (a
+    sharded step), "cpu" (a tensor off the card), "grad" (grad mode and a
+    tensor that requires grad), "dtype" (activations of a type the kernels
+    do not take) or "shape" (groups, head dim, state, taps or chunk length
+    the kernels are not built for).  Layout and the parameters' types are
+    no reason: ``_as_taken`` gives the kernels what they take."""
+    every = list(acts) + [params[k] for k in SSD.TYPED_PARAMS
+                          + SSD.HEAD_PARAMS] + ([] if h0 is None else [h0])
+    if any(isinstance(t, DTensor) for t in every):
+        return "dtensor"
+    if not all(_on_card(t) for t in every):
+        return "cpu"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in every):
+        return "grad"
+    if acts[1].dtype not in KB.ACTIVATION_DTYPES:
+        return "dtype"
+    B, S = acts[1].shape[:2]
+    if SSM_GROUPS != 1 or not SSD.takes_shape(
+            B, S, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv,
+            cfg.ssm_chunk):
+        return "shape"
+    return None
+
+
+def _as_taken(params, acts, h0):
+    """The fused mixer's inputs as the kernels take them: contiguous, in
+    xr's type, with A_log, D and dt_bias in float32 (the tensors
+    themselves where they are so already, as a model's own are)."""
+    dtype = acts[1].dtype
+
+    def typed(t):
+        return t.to(dtype).contiguous()
+
+    taken = {k: typed(params[k]) for k in SSD.TYPED_PARAMS}
+    taken.update({k: params[k].to(torch.float32).contiguous()
+                  for k in SSD.HEAD_PARAMS})
+    return (tuple(typed(t) for t in acts), taken,
+            None if h0 is None else typed(h0))
+
+
+def mixer_plain(params, z, xr, Br, Cr, dt, cfg: ModelConfig, h0=None):
+    """The mixer of ``mamba_forward`` from its projections' outputs, op by
+    op: the convs, softplus, ``ssd_chunked``, the D skip and the gated
+    norm.  Returns the input of ``out_proj`` and the final state."""
+    Bsz, S, _ = xr.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    # z's gradient comes out of the gated norm as a partial sum over the
-    # model axis (its variance reduces over the sharded inner dim): reduced
-    # to z's layout before the product's backward takes it, as for
-    # ``layers.residual``
-    z = grad_in_layout(constrain(column(x, params["in_z"]), "ssm_inner"))
-    xr = constrain(column(x, params["in_x"]), "ssm_inner")
-    Br = column(x, params["in_B"])
-    Cr = column(x, params["in_C"])
-    dt = grad_in_layout(column(x, params["in_dt"]))
     xs = constrain(_causal_conv(xr, params["conv_x"], params["conv_bx"]),
                    "ssm_inner")
     Bm = _causal_conv(Br, params["conv_B"], params["conv_bB"])
@@ -227,8 +277,33 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
                         h0)
     y = y + params["D"].to(y.dtype)[:, None] * xs
     y = constrain(y.reshape(Bsz, S, -1), "ssm_inner")
-    out = residual(_gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
-                   @ row(params["out_proj"]))
+    return _gated_norm(y, z, params["norm_scale"], cfg.norm_eps), hT
+
+
+def mamba_forward(params, x, cfg: ModelConfig, h0=None,
+                  return_cache: bool = False):
+    """Full-sequence mamba2 block.  x: (B,S,D).  Between the projections
+    and ``out_proj`` the fused SSD mixer kernels run where they take the
+    call (``plain_reason``), the plain chain ``mixer_plain`` elsewhere."""
+    # z's gradient comes out of the gated norm as a partial sum over the
+    # model axis (its variance reduces over the sharded inner dim): reduced
+    # to z's layout before the product's backward takes it, as for
+    # ``layers.residual``
+    z = grad_in_layout(constrain(column(x, params["in_z"]), "ssm_inner"))
+    xr = constrain(column(x, params["in_x"]), "ssm_inner")
+    Br = column(x, params["in_B"])
+    Cr = column(x, params["in_C"])
+    dt = grad_in_layout(column(x, params["in_dt"]))
+    why = plain_reason(params, (z, xr, Br, Cr, dt), cfg, h0)
+    PATHS["fused" if why is None else f"plain.{why}"] += 1
+    if why is None:
+        acts, taken, h0 = _as_taken(params, (z, xr, Br, Cr, dt), h0)
+        g, hT = SSD.ssd_mixer(*acts, taken, chunk=cfg.ssm_chunk,
+                              eps=cfg.norm_eps, h0=h0,
+                              want_state=return_cache)
+    else:
+        g, hT = mixer_plain(params, z, xr, Br, Cr, dt, cfg, h0)
+    out = residual(g @ row(params["out_proj"]))
     if return_cache:
         K = cfg.ssm_conv
         conv_cache = {

@@ -26,9 +26,11 @@ from repro_torch.core.collab import CollabRuntime  # noqa: E402
 from repro_torch.kernels import _build as KB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.boundary import fused_boundary  # noqa: E402
+from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.kernels.semantic_cache import semantic_probe  # noqa: E402
 from repro_torch.kernels.uaq import uaq_dequantize, uaq_quantize  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.serving import generate  # noqa: E402
 
 PROBE_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -1265,3 +1267,252 @@ def test_a_failed_dtensor_capture_raises_and_the_next_key_captures(
         assert (f.captures, f.replays) == (1, 2)
         for g in got:
             assert torch.equal(_full(g), _full(_affine(p, y)))
+
+
+# ------------------------------------------------ K5: the SSD mixer
+def _ssd_block(cfg, dtype, device, seed=0):
+    """A mamba2 block's parameters with biases, D and norm scale drawn away
+    from their init (0 and 1, which would hide terms), the typed ones in
+    ``dtype``, A_log / D / dt_bias in float32."""
+    gen = torch.Generator().manual_seed(seed)
+    p = SSM.init_mamba(cfg, gen, torch.float32, "cpu")
+    for k in ("conv_bx", "conv_bB", "conv_bC"):
+        p[k] = torch.randn(p[k].shape, generator=gen) * 0.1
+    p["norm_scale"] = 1.0 + 0.1 * torch.randn(p["norm_scale"].shape,
+                                              generator=gen)
+    p["D"] = 1.0 + 0.1 * torch.randn(p["D"].shape, generator=gen)
+    return {k: v.to(device, dtype if k not in SSD.HEAD_PARAMS else
+                    torch.float32) for k, v in p.items()}
+
+
+def _ssd_acts(cfg, B, S, dtype, device, seed=1):
+    """z, xr, Br, Cr, dt as the projections give them."""
+    gen = torch.Generator().manual_seed(seed)
+    di, N, H = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    shapes = ((B, S, di), (B, S, di), (B, S, N), (B, S, N), (B, S, H))
+    return tuple((torch.randn(s, generator=gen) * sc).to(device, dtype)
+                 for s, sc in zip(shapes, (1.0, 1.0, 0.5, 0.5, 1.0)))
+
+
+def _ssd_cfg(chunk=256):
+    return dataclasses.replace(get_config("mamba2-130m"), ssm_chunk=chunk)
+
+
+def _widened(tree):
+    return {k: v.float() for k, v in tree.items()}
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+SSD_SHAPES = [(1, 1, 256), (1, 8, 256), (1, 128, 256), (2, 77, 256),
+              (1, 256, 256), (1, 300, 256), (2, 77, 32)]
+
+
+@pytest.mark.parametrize("want_state", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,chunk", SSD_SHAPES)
+def test_ssd_mixer_matches_the_plain_chain(cuda, B, S, chunk, dtype,
+                                           with_h0, want_state):
+    """The fused mixer (three launches, four with a state) against
+    ``mixer_plain`` on the same inputs at mamba2-130m's widths (24 heads
+    of 64, state 128, 4 taps): in fp32 within ``TOL`` of the plain chain
+    on the card (the out_proj input) and within 1e-4 of the largest
+    value (the final state, a sum over the chunk); in bf16 within four
+    bf16 half-ulps of the largest value of the plain chain run in fp32
+    on the same bf16 values (the kernels compute in fp32 and round
+    once).  (1, 300) is two chunks of 256, the second padded; (2, 77) at
+    chunk 32 three, the last padded."""
+    cfg = _ssd_cfg(chunk)
+    p = _ssd_block(cfg, dtype, cuda)
+    acts = _ssd_acts(cfg, B, S, dtype, cuda)
+    h0 = (torch.randn((B, cfg.ssm_heads, 64, 128), generator=torch.Generator(
+        ).manual_seed(2)) * 0.5).to(cuda, dtype) if with_h0 else None
+    nc = -(-S // min(chunk, S))
+    state = nc > 1 or with_h0 or want_state
+    KB.LAUNCHES.clear()
+    with torch.no_grad():
+        out, hT = SSD.ssd_mixer(*acts, p, chunk=chunk, eps=cfg.norm_eps,
+                                h0=h0, want_state=want_state)
+        torch.cuda.synchronize()
+        assert sum(KB.LAUNCHES.values()) == 3 + state
+        assert (hT is not None) == state
+        if dtype == torch.float32:
+            want, whT = SSM.mixer_plain(p, *acts, cfg, h0)
+            _near(out, want, TOL)
+        else:
+            want, whT = SSM.mixer_plain(
+                _widened(p), *(a.float() for a in acts), cfg,
+                None if h0 is None else h0.float())
+            assert _max_err(out, want) <= 2 ** -7 * float(want.abs().max())
+    assert out.dtype == dtype and out.shape == acts[0].shape
+    if state:
+        assert hT.dtype == dtype and hT.shape == whT.shape
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        assert _max_err(hT, whT) <= tol * float(whT.abs().max())
+
+
+def test_ssd_mixer_replays_bit_equal_in_a_graph(cuda):
+    """Captured in a CUDA graph, the mixer (with its state kernel) gives
+    the eager launch's bits at every replay, and counts its launches at
+    capture only."""
+    cfg = _ssd_cfg()
+    p = _ssd_block(cfg, torch.float32, cuda)
+    acts = _ssd_acts(cfg, 1, 300, torch.float32, cuda)
+    with torch.no_grad():
+        want, whT = SSD.ssd_mixer(*acts, p, chunk=256, eps=cfg.norm_eps)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            SSD.ssd_mixer(*acts, p, chunk=256, eps=cfg.norm_eps)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        KB.LAUNCHES.clear()
+        with torch.cuda.graph(graph):
+            out, hT = SSD.ssd_mixer(*acts, p, chunk=256, eps=cfg.norm_eps)
+        assert dict(KB.LAUNCHES) == {"ssd_prep": 1, "ssd_chunk": 1,
+                                     "ssd_state": 1, "gated_rmsnorm": 1}
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want) and torch.equal(hT, whT)
+        assert sum(KB.LAUNCHES.values()) == 4
+
+
+@pytest.mark.parametrize("case", ["cpu_input", "z_on_cpu", "dtype",
+                                  "mixed_dtype", "head_param_dtype",
+                                  "shape", "state_width", "h0_shape",
+                                  "not_contiguous", "chunk"])
+def test_ssd_mixer_wrapper_raises(cuda, case):
+    cfg = _ssd_cfg()
+    p = _ssd_block(cfg, torch.float32, cuda)
+    z, xr, Br, Cr, dt = _ssd_acts(cfg, 1, 8, torch.float32, cuda)
+    h0, chunk, err = None, 256, ValueError
+    if case == "cpu_input":
+        z, xr, Br, Cr, dt = (t.cpu() for t in (z, xr, Br, Cr, dt))
+    elif case == "z_on_cpu":
+        z = z.cpu()
+    elif case == "dtype":
+        z, xr, Br, Cr, dt = (t.double() for t in (z, xr, Br, Cr, dt))
+        err = TypeError
+    elif case == "mixed_dtype":
+        Br = Br.to(torch.bfloat16)
+        err = TypeError
+    elif case == "head_param_dtype":
+        p["dt_bias"] = p["dt_bias"].to(torch.bfloat16)
+        err = TypeError
+    elif case == "shape":
+        xr = xr[:, :, :-64].contiguous()
+    elif case == "state_width":
+        Br = Br[:, :, :64].contiguous()
+    elif case == "h0_shape":
+        h0 = torch.zeros((1, cfg.ssm_heads, 64, 64), device=cuda)
+    elif case == "not_contiguous":
+        xr = torch.stack([xr, xr], -1)[..., 0]
+    elif case == "chunk":
+        chunk = 0
+    with torch.no_grad(), pytest.raises(err):
+        SSD.ssd_mixer(z, xr, Br, Cr, dt, p, chunk=chunk, eps=cfg.norm_eps,
+                      h0=h0)
+
+
+@pytest.mark.parametrize("S", [8, 128])
+def test_full_mamba2_forward_on_card_matches_cpu(cuda, S):
+    """The whole mamba2-130m (24 layers at the published widths) on the
+    card, every layer through the fused mixer, gives the CPU's hidden
+    states within ``TOL``."""
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32))
+    with torch.no_grad():
+        want, _, _ = M.forward(params, cfg, toks)
+        paths, (got, _, _) = _paths_during(
+            lambda: M.forward(gparams, cfg, toks.to(cuda)))
+    assert paths == {"fused": cfg.num_layers}
+    _near(got, want, TOL)
+
+
+def _paths_during(fn):
+    """The ``ssm.PATHS`` counts that ``fn()`` adds, and its result."""
+    before = SSM.PATHS.copy()
+    out = fn()
+    paths = SSM.PATHS.copy()
+    paths.subtract(before)
+    return {k: v for k, v in paths.items() if v}, out
+
+
+def _cache_leaves(tree, at=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _cache_leaves(v, f"{at}/{k}")
+    elif isinstance(tree, tuple):
+        for k, v in enumerate(tree):
+            yield from _cache_leaves(v, f"{at}/{k}")
+    else:
+        yield at, tree
+
+
+@pytest.mark.parametrize("S", [8, 300])
+def test_mamba2_prefill_cache_on_card_matches_cpu(cuda, S):
+    """A prefill of the whole mamba2-130m with its cache on the card: every
+    layer's mixer fused with the state kernel (``return_cache``), the
+    last position's logits, each layer's final SSM state and its conv
+    tails against the CPU's, the state within 1e-4 of its largest value
+    (a sum over the chunk), the rest within ``TOL``.  S = 300 is two
+    chunks of 256, the second padded."""
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gparams = M.params_from_numpy(_as_numpy(params), cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32))
+    with torch.no_grad():
+        want, wcache = M.prefill(params, cfg, toks, S + 4)
+        KB.LAUNCHES.clear()
+        paths, (got, gcache) = _paths_during(
+            lambda: M.prefill(gparams, cfg, toks.to(cuda), S + 4))
+        torch.cuda.synchronize()
+    assert paths == {"fused": cfg.num_layers}
+    assert KB.LAUNCHES["ssd_state"] == cfg.num_layers
+    _near(got, want, TOL)
+    wl, gl = dict(_cache_leaves(wcache)), dict(_cache_leaves(gcache))
+    assert sorted(wl) == sorted(gl) and any("state" in k for k in wl)
+    for k, w in wl.items():
+        g = gl[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if "state" in k:
+            assert _max_err(g.cpu(), w) <= 1e-4 * float(w.abs().max()), k
+        else:
+            _near(g, w, TOL)
+
+
+def test_jitted_segments_with_the_fused_mixer_are_bit_equal(cuda):
+    """As ``test_jitted_segments_are_bit_equal_to_the_eager_ones``, at the
+    head dim and state the fused mixer takes: each segment's graph gives
+    the bare function's bits at its capture and at two replays, and
+    every mamba layer took the fused path at capture."""
+    from repro_torch.core.jit import jit
+    cfg = get_config("mamba2-130m").reduced(num_layers=3, ssm_head_dim=64,
+                                            ssm_state=128)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rt = CollabRuntime(cfg, M.params_from_numpy(_as_numpy(params), cfg,
+                                                cuda), (1, 2))
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(cuda)
+    before = SSM.PATHS.copy()
+    with torch.no_grad():
+        for k, f in enumerate(rt._seg_fns):
+            p = rt.p_segments[k]
+            assert isinstance(f, jit)
+            got = [f(p, x) for _ in range(3)]
+            want = f.fn(p, x)
+            for g in got:
+                assert torch.equal(g, want), k
+            x = got[0]
+    paths = SSM.PATHS.copy()
+    paths.subtract(before)
+    assert paths["fused"] >= cfg.num_layers and not any(
+        v for k, v in paths.items() if k.startswith("plain"))

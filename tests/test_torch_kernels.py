@@ -415,8 +415,10 @@ def test_ctypes_signatures_match_the_c_entry_points():
             if "*" in arg:
                 kinds.append(ctypes.c_void_p)
             else:
-                assert re.fullmatch(r"int \w+", arg), arg
-                kinds.append(ctypes.c_int)
+                kind = re.fullmatch(r"(int|float) \w+", arg)
+                assert kind, arg
+                kinds.append(ctypes.c_int if kind.group(1) == "int"
+                             else ctypes.c_float)
         found[name] = kinds
     assert found == KB._SIGNATURES
     enum = re.search(r"enum DType \{([^}]*)\}", src).group(1)
