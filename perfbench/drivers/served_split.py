@@ -13,8 +13,11 @@ import torch
 from perfbench.harness import judge as J
 from perfbench.harness.served import Record, Served
 from perfbench.harness.taskstream import task_tokens
+from perfbench.harness.work import PEAK_FLOPS
 
 BOUNDARY_KERNELS = ("fused_boundary", "uaq_dequantize")
+NUMBERS = ("feat_off", "sims_err", "sep_err", "decisions_off", "payload_off",
+           "scale_off", "logits_off")
 
 
 class Driver(Served):
@@ -54,11 +57,14 @@ class Driver(Served):
                      f"wire_kb_per_task {stats.wire_kb_per_task!r}")
         flops = importlib.import_module(
             f"perfbench.flops.{self.conf['kind']}")
+        dtype = self.conf["dtype"]
         fields = dict(
             seq_len=self.seq_len, d_model=self.cfg.d_model,
             launches=launches, wire_bits=J.WIRE_BITS,
             flops_per_task=flops.task_flops(self.conf["model"],
-                                            self.seq_len))
+                                            self.seq_len),
+            peak_flops=PEAK_FLOPS[dtype], rows=self.seq_len,
+            act_bytes=getattr(torch, dtype).itemsize)
         if trace_range is not None:
             a, b = trace_range
             fields["traced_centers"] = float(
@@ -86,3 +92,48 @@ class Driver(Served):
                          packets=got["packets"])
         return J.compare(conf, traffic, got, want, [y for _, y in calib],
                          [y for _, y in tasks])
+
+
+# -------------------------------------------------------------- control
+def _bfloat16_reference(bench, cell, conf, traffic, limits, seed, seconds,
+                        tasks, dev):
+    """The control: the plain reference put in the program's place and
+    computed in bfloat16, against the reference in float32, at the cell's
+    own size: the same weights, calibration and tasks as a run of that
+    seed, as many tasks as a run serves (an open cell's ``rate *
+    seconds``; a closed cell's ``tasks``) and the same seeded sample."""
+    from perfbench.harness import traffic as T
+    from perfbench.harness import weights as W
+    from perfbench.harness.main import verdict
+    from perfbench.harness.served import CALIB_TASKS, port_config
+    from perfbench.harness.taskstream import TaskStream
+    from perfbench.harness.window import sample_of
+    from repro_torch.models import model as M
+
+    dtype = torch.bfloat16
+    cfg = port_config(conf)
+    S = int(traffic["seq_len"])
+    meta = M.init_params(cfg, device="meta")
+    params = W.make(meta, seed, dev)
+    stream = TaskStream(n_labels=int(traffic["n_labels"]), dim=cfg.d_model,
+                        correlation=traffic["correlation"], seed=seed)
+    due = T.due_times(traffic, seconds)
+    n = len(due) if due is not None else tasks
+    calib = [(task_tokens(t, S, cfg.vocab_size), t.label)
+             for t in stream.tasks(CALIB_TASKS)]
+    served = [(task_tokens(t, S, cfg.vocab_size), t.label)
+              for t in stream.tasks(n)]
+    calib_labels = [y for _, y in calib]
+    labels = [y for _, y in served]
+    sample = sample_of(seed, n)
+    got = J.serve_like(conf, traffic,
+                       J.outputs(conf, params, calib, served, sample, S, dev,
+                                 dtype), calib_labels, labels, dtype)
+    want = J.outputs(conf, params, calib, served, sample, S, dev,
+                     packets=got["packets"])
+    numbers = J.compare(conf, traffic, got, want, calib_labels, labels)
+    ok, lines = verdict(numbers, limits["limits"])
+    return numbers, ok, lines
+
+
+CONTROLS = {"bfloat16": _bfloat16_reference}

@@ -33,10 +33,26 @@ def _events(prof):
     return dev, host
 
 
+def concurrent_ns(ops) -> int:
+    """The time in which two or more of ``ops`` ((start, end, name)) ran
+    at once: a sweep over their starts and ends, an end before a start
+    at the same instant."""
+    edges = sorted([(a, 1) for a, b, _ in ops if b > a]
+                   + [(b, -1) for a, b, _ in ops if b > a])
+    total = depth = last = 0
+    for t, d in edges:
+        if depth >= 2:
+            total += t - last
+        depth += d
+        last = t
+    return total
+
+
 def read(prof) -> dict:
-    """{"busy_s", "window_s", "device_ops", "idle_gaps", "kernels":
-    {name: (seconds, count)}} of a closed ``window.Profile``; None when
-    the profiler recorded no device operation."""
+    """{"busy_s", "overlap_s", "window_s", "device_ops", "idle_gaps",
+    "kernels": {name: (seconds, count)}} of a closed ``window.Profile``
+    (``overlap_s``: the seconds in which two or more device operations
+    ran at once); None when the profiler recorded no device operation."""
     dev, host = _events(prof.prof)
     win = [h for h in host if h[2] == "pb.window"]
     if not dev or not win:
@@ -82,6 +98,7 @@ def read(prof) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {
         "busy_s": busy_ns / 1e9,
+        "overlap_s": concurrent_ns(ops) / 1e9,
         "window_s": (w1 - w0) / 1e9,
         "device_ops": [[n[:120], s] for n, (s, _) in top[:10]],
         "idle_gaps": sorted(([k, v] for k, v in idle.items()),

@@ -5,7 +5,9 @@
                   ("open_poisson", "closed")
   rate            tasks/s of an open loop
   schedule_seed   an open loop's arrival schedule, drawn once
-  seq_len         tokens a task
+  seq_len         tokens a task (a pipelined step's: a sequence)
+  n_micro, batch  a pipelined step's microbatches, and its sequences a
+                  microbatch
   correlation     the task stream's temporal correlation
                   ("low" | "medium" | "high")
   n_labels        labels of the task stream

@@ -1,5 +1,6 @@
 """K1 ``fused_boundary`` (its ``row_pass_kernel``): the least time of one
-call at the served shape (bytes over the HBM rate, or fp32 operations
+call at its shape (the driver's ``rows`` of ``d_model`` channels, read
+``act_bytes`` an element; bytes over the HBM rate, or fp32 operations
 over the peak, ``harness/work.py``) over its device time a call in the
 profiled stretch, %."""
 
@@ -14,6 +15,6 @@ def read(run):
     if kt is None or kt[1] == 0:
         return None
     seconds, calls = kt
-    bound = roofline_s("fused_boundary", 1, run.seq_len, run.d_model,
-                       run.traced_centers, run.wire_bits)
+    bound = roofline_s("fused_boundary", 1, run.rows, run.d_model,
+                       run.traced_centers, run.wire_bits, run.act_bytes)
     return 100.0 * bound / (seconds / calls)

@@ -6,6 +6,8 @@ import math
 import os
 import re
 
+import pytest
+
 from perfbench.tests.tiny import ROOT, bench
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -132,14 +134,41 @@ def test_run_seconds_fits_the_check_with_24_cells():
     assert runs * (b["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
+def driver_numbers(cell_file):
+    """The numbers that the cell's driver compares."""
+    import importlib
+    return importlib.import_module(
+        f"perfbench.drivers.{cell_file['driver']}").NUMBERS
+
+
+def limits_follow_the_driver(cell_file):
+    lim = cell_file["limits"]
+    assert set(lim) == set(driver_numbers(cell_file))
+    assert all(math.isfinite(v) and v >= 0 for v in lim.values())
+
+
 def test_limits_name_every_number_compared():
     from perfbench.harness import judge as J
     b = bench()
     for w in b["workloads"]:
-        lim = json.load(open(os.path.join(ROOT, "perfbench", "workloads",
-                                          f"{w['name']}.json")))["limits"]
-        assert set(lim) == {"feat_off", "sims_err", "sep_err",
-                            "decisions_off", "payload_off", "scale_off",
-                            "logits_off"}
-        assert all(math.isfinite(v) and v >= 0 for v in lim.values())
+        cellf = json.load(open(os.path.join(ROOT, "perfbench", "workloads",
+                                            f"{w['name']}.json")))
+        limits_follow_the_driver(cellf)
+        if cellf["driver"] == "served_split":
+            assert set(cellf["limits"]) == {
+                "feat_off", "sims_err", "sep_err", "decisions_off",
+                "payload_off", "scale_off", "logits_off"}
     assert J.WIRE_BITS == 8
+
+
+@pytest.mark.parametrize("driver,limits", [
+    ("served_split", {"logits_err": 1e-3, "logits_l2": 1e-3}),
+    ("served_split", {"feat_off": 0.05, "sims_err": 1e-4, "sep_err": 3e-4,
+                      "decisions_off": 0.0, "payload_off": 0.03,
+                      "scale_off": 0.05}),
+    ("pipe_step", {"feat_off": 0.05, "logits_off": 0.25}),
+    ("pipe_step", {"logits_err": 0.1, "logits_l2": 0.1, "logits_off": 0.2}),
+    ("pipe_step", {"logits_err": 0.1, "logits_l2": math.inf})])
+def test_limits_that_misname_their_drivers_numbers_fail(driver, limits):
+    with pytest.raises(AssertionError):
+        limits_follow_the_driver({"driver": driver, "limits": limits})

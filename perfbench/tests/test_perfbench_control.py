@@ -18,5 +18,26 @@ def test_bfloat16_control_is_not_correct(cell, seq_len, tasks):
     numbers, ok, lines = control(bench(), c, tiny_conf(conf),
                                  tiny_traffic(traffic, seq_len), limits, 3,
                                  1.0, tasks, torch.device("cpu"),
-                                 torch.bfloat16)
+                                 "bfloat16")
     assert not ok, lines
+
+
+def test_each_cell_finds_its_controls_through_its_driver():
+    from perfbench.control import controls
+    for w in bench()["workloads"]:
+        limits = cell_files(w["name"])[3]
+        want = {"served_split": {"bfloat16"},
+                "pipe_step": {"float8_e4m3fn", "wire4"}}[limits["driver"]]
+        assert set(controls(limits)) == want
+
+
+@pytest.mark.parametrize("cell", ["serve-mamba2-130m-s128-closed",
+                                  "pipe-qwen3-14b-bf16-2x1x512"])
+def test_a_closed_cell_needs_its_task_count(cell, capsys):
+    """A closed cell's control samples as a run of ``--tasks`` tasks
+    does; without the count it stops at the arguments and names it."""
+    from perfbench.control import main
+    with pytest.raises(SystemExit) as e:
+        main(["--workload", cell, "--seeds", "1", "--seconds", "20"])
+    assert e.value.code == 2
+    assert "--tasks" in capsys.readouterr().err

@@ -13,6 +13,8 @@ TINY = {
                 ssm_head_dim=16, ssm_chunk=16),
     "moe": dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
                 head_dim=16, d_ff=128, vocab_size=512, sliding_window=64),
+    "dense": dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
+                  head_dim=16, d_ff=128, vocab_size=512),
 }
 
 
@@ -28,11 +30,16 @@ def cell_files(name):
 
 
 def tiny_conf(conf):
-    """``conf`` with the tiny widths and its planner's deployment."""
+    """``conf`` with the tiny widths and its deployment at them: a
+    served split's planner's cut, or two pods of half the layers each."""
     from perfbench.harness.served import deployment, plan, port_config
     from repro_torch.core.costs import WIFI_5GHZ
     conf = copy.deepcopy(conf)
     conf["model"].update(TINY[conf["kind"]])
+    if "layers_per_pod" in conf["deployment"]:
+        conf["deployment"]["layers_per_pod"] = \
+            conf["model"]["num_layers"] // 2
+        return conf
     cut, off = plan(port_config(conf), WIFI_5GHZ(50.0))
     conf["deployment"] = deployment(cut, off)
     return conf
