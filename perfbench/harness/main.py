@@ -68,7 +68,9 @@ def load(root, name):
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     cell = cells[name]
     confs = {c["name"]: c for c in bench["configs"]}
-    conf = json.load(open(os.path.join(root, confs[cell["config"]]["file"])))
+    path = confs[cell["config"]]["file"]
+    # the file's own path, for errors that name it
+    conf = dict(json.load(open(os.path.join(root, path))), file=path)
     from perfbench.harness import traffic as T
     limits = json.load(open(os.path.join(root, "perfbench", "workloads",
                                          f"{name}.json")))

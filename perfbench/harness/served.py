@@ -23,6 +23,7 @@ decides ``correct``."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 import time
 from typing import List
@@ -53,9 +54,28 @@ def calib_batch(seq_len: int) -> int:
 
 def port_config(conf: dict):
     """The program's model configuration, as the configuration file
-    states it."""
-    from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(conf["arch"]), **conf["model"])
+    states it: the ``CONFIG`` of the port module that the file names as
+    ``module``, with the file's ``model`` applied over it.  ``CONFIG``
+    may be of a subclass of ``ModelConfig`` with fields of its own, which
+    ``model`` may set.  A module that does not import, or holds no
+    ``ModelConfig`` as ``CONFIG``, stops the run before any weights are
+    made, with an error that names the file and the module."""
+    from repro_torch.models.config import ModelConfig
+    name = conf.get("module")
+    where = f"configuration {conf.get('file', conf.get('name'))}, " \
+        f"module {name!r}"
+    try:
+        mod = importlib.import_module(name)
+    except Exception as e:  # whatever stops the module importing
+        raise ValueError(f"{where}: does not import ({e!r})") from e
+    base = getattr(mod, "CONFIG", None)
+    if not isinstance(base, ModelConfig):
+        raise ValueError(f"{where}: CONFIG is {type(base).__name__}, "
+                         f"not a ModelConfig")
+    try:
+        return dataclasses.replace(base, **conf["model"])
+    except TypeError as e:  # a key of ``model`` that CONFIG has no field for
+        raise ValueError(f"{where}: {e}") from e
 
 
 def plan(cfg, link):

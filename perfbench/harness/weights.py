@@ -38,7 +38,8 @@ def rebuild(tree, fn, path=()):
     return fn(path, tree)
 
 
-def _fill(name: str, t: torch.Tensor, gen: torch.Generator):
+def _fill(path: tuple, t: torch.Tensor, gen: torch.Generator):
+    name = path[-1]
     if name in ONES:
         return t.fill_(1.0)
     if name in ZEROS:
@@ -48,7 +49,13 @@ def _fill(name: str, t: torch.Tensor, gen: torch.Generator):
     if name == "dt_bias":  # softplus(dt_bias) log-uniform in [1e-3, 0.1]
         t.uniform_(math.log(1e-3), math.log(0.1), generator=gen)
         return t.exp_().expm1_().log_()
-    std = FIXED_STD.get(name, 1.0 / math.sqrt(t.shape[-2]))
+    if name in FIXED_STD:
+        std = FIXED_STD[name]
+    elif t.dim() >= 2:  # a matrix's fan-in
+        std = 1.0 / math.sqrt(t.shape[-2])
+    else:
+        raise ValueError(f"weights: no rule draws the {t.dim()}-D leaf "
+                         f"{'/'.join(map(str, path))}")
     return t.normal_(0.0, std, generator=gen)
 
 
@@ -59,6 +66,6 @@ def make(meta_tree, seed: int, device) -> dict:
     out = {}
     for path, m in sorted(leaves(meta_tree), key=lambda pl: str(pl[0])):
         t = torch.empty(m.shape, dtype=torch.float32, device=device)
-        out[path] = _fill(path[-1], t, gen).to(m.dtype)
+        out[path] = _fill(path, t, gen).to(m.dtype)
     return rebuild(meta_tree, lambda path, _: out[path])
 

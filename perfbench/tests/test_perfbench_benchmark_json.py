@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` keeps to the contract's shapes and names, and
 finds every file it names."""
 
+import importlib
 import json
 import math
 import os
@@ -62,6 +63,7 @@ def test_names_units_and_lines():
 
 
 def test_cells_configs_and_files():
+    from repro_torch.models.config import ModelConfig
     b = bench()
     confs = {c["name"]: c for c in b["configs"]}
     used = set()
@@ -97,8 +99,12 @@ def test_cells_configs_and_files():
         for k in c["reduced"]:
             assert NAME.match(k) and not WIDTH.search(k), k
             assert k in conf["config"]
-        for k in ("arch", "kind", "dtype", "model", "deployment"):
+        for k in ("module", "kind", "dtype", "model", "deployment"):
             assert k in conf
+        # the port module that holds the model, not the JAX package's
+        assert conf["module"].startswith("repro_torch."), conf["module"]
+        assert isinstance(importlib.import_module(conf["module"]).CONFIG,
+                          ModelConfig), conf["module"]
         for d in ("reference", "flops"):
             assert os.path.exists(os.path.join(ROOT, "perfbench", d,
                                                f"{conf['kind']}.py"))
@@ -136,7 +142,6 @@ def test_run_seconds_fits_the_check_with_24_cells():
 
 def driver_numbers(cell_file):
     """The numbers that the cell's driver compares."""
-    import importlib
     return importlib.import_module(
         f"perfbench.drivers.{cell_file['driver']}").NUMBERS
 

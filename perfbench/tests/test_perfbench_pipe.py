@@ -23,7 +23,8 @@ from perfbench.harness import main as MAIN
 from perfbench.harness import weights as W
 from perfbench.harness.served import port_config
 from perfbench.reference import dense as RD
-from perfbench.tests.tiny import bench, cell_files, tiny_conf, tiny_traffic
+from perfbench.tests.tiny import (bench, cell_files, composed, on_the_cpu,
+                                  tiny_conf, tiny_traffic)
 
 CELL = "pipe-qwen3-14b-bf16-2x1x512"
 TINY_TRAFFIC = dict(n_micro=4, batch=2, seq_len=16)
@@ -35,38 +36,6 @@ def tiny(dtype="float32"):
     conf = tiny_conf(conf)
     conf["dtype"] = dtype
     return cell, conf, dict(tiny_traffic(traffic), **TINY_TRAFFIC), limits
-
-
-def composed(cfg, bits):
-    """The port's two pods composed as ``make_collab_pipeline_step``
-    composes them, from its own pieces, with the plain K3 and K2."""
-    from repro_torch.kernels import ops as KOPS
-    from repro_torch.models import layers as L
-    from repro_torch.models import model as M
-    half, D = cfg.num_groups // 2, cfg.d_model
-
-    def step(params, tokens):
-        outs = []
-        for t in range(tokens.shape[0]):
-            B, S = tokens[t].shape
-            pos = M.positions_for(B, S, tokens.device)
-            h = M.run_groups(M.group_slice(params["groups"], slice(0, half)),
-                             M._embed(params, cfg, tokens[t]), cfg, pos)
-            wire = KOPS.wire_quantize(h.reshape(-1, D), bits,
-                                      use_kernel=False)
-            h = KOPS.wire_dequantize(*wire, bits, out_dtype=h.dtype,
-                                     channels=D, use_kernel=False)
-            outs.append(M.run_groups(
-                M.group_slice(params["groups"], slice(half, None)),
-                h.reshape(B, S, D), cfg, pos))
-        h = L.rms_norm(torch.stack(outs), params["final_norm"], cfg.norm_eps)
-        return M._lm_head(params, cfg, h[:, :, -1])
-    return step
-
-
-def stand_in(drv, bits):
-    from repro_torch.core.jit import jit
-    return jit(composed(drv.cfg, bits))
 
 
 # ------------------------------------------------------------ reference
@@ -205,7 +174,7 @@ def test_concurrent_time_counts_two_or_more_in_flight():
 def cpu_run(monkeypatch, fault=None, seed=5, seconds=1.0):
     """A tiny run on one thread, as ``run.py`` runs (a window of a few
     steps at least, so that every tick position is compared)."""
-    monkeypatch.setattr(PS.Driver, "make_step", stand_in)
+    on_the_cpu("pipe_step", monkeypatch)
     cell, conf, traffic, limits = tiny()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -236,7 +205,7 @@ def test_every_per_layer_reader_reads_a_traced_window(monkeypatch):
     import importlib
 
     from perfbench.harness import window as WIN
-    monkeypatch.setattr(PS.Driver, "make_step", stand_in)
+    on_the_cpu("pipe_step", monkeypatch)
     _, conf, traffic, _ = tiny()
     drv = PS.Driver(conf, traffic, 5, torch.device("cpu"))
     mark = drv.mark()
