@@ -22,7 +22,9 @@ Phases (any failure exits non-zero before the last line):
      stream are replayed out of order and at once; the SSD mixer (K5,
      ``kernels/ssd.py``) against ``models.ssm.mixer_plain`` on the same
      inputs at mamba2-130m's widths, (1, 8) and (1, 128) tokens and two
-     chunks from a given state with the final state returned;
+     chunks from a given state with the final state returned; the
+     projection kernels (K6, ``kernels/ssd_proj.py``) against the fp32
+     products at 1, 3, 8 and 16 rows, and bit-equal at a second call;
   3. time each kernel and its plain version at 8 and 4 bits (CUDA graphs
      of back-to-back launches, CUDA events, median) beside the
      bytes/operations bound, at serve's shape on gemma2-2b, mamba2-130m
@@ -31,7 +33,11 @@ Phases (any failure exits non-zero before the last line):
      kernel node in a graph captured from a call, beside what the fused
      boundary's counters add there, and no other kernel under the
      profiler); the SSD mixer and its plain chain at (1, 8, 768) and
-     (1, 128, 768) beside the mixer's own bytes / operations bound;
+     (1, 128, 768) beside the mixer's own bytes / operations bound; the
+     projection kernels at 8 rows (768 -> 3352 over five weights, 1536 ->
+     768), each call on the next of 24 layers' weights (out of L2), beside
+     their weight bytes' bound, the plain products and one cuBLAS product
+     (``library_ms``);
   4. serve 24 requests on full-width gemma2-2b (random weights from a
      seed) through ``repro_torch.launch.serve.serve`` and require the
      fused boundary and dequantize kernels to have launched;
@@ -48,7 +54,8 @@ Phases (any failure exits non-zero before the last line):
   6. phases 4 and 5 on full-width mamba2-130m (24 layers), every
      ``mamba_forward`` call of both on the fused SSD mixer
      (``models.ssm.PATHS``), and in serve as many launches of each of its
-     kernels as calls;
+     kernels as calls, and of each projection kernel as the calls
+     ``models.ssm.PROJ_PATHS`` counts "fused" (some at least);
   7. phases 4 and 5 on full-width mixtral-8x7b cut to 4 of its 32 layers
      (the 32 take ~187 GB in fp32, more than one card holds);
   8. greedy ``generate`` of 32 tokens after a 64-token prompt on that
@@ -135,6 +142,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -209,6 +217,15 @@ SSD_CHECKS = [(1, 8, 256, False), (1, 128, 256, False), (1, 300, 256, True)]
 # K5 against its plain chain: max |d| over the chain's max |value| (sums
 # over the state and the chunk run in another order)
 SSD_RTOL = 1e-4
+# K6, a mamba2 block's projections at up to 16 rows (kernels/ssd_proj.py),
+# replaces no pallas_call either: the JAX package leaves the dots to XLA
+PROJ_SOURCE = f"{CSRC}/ssd_proj.cu"
+PROJ_PLAIN = "src/repro/models/ssm.py:157,174"
+PROJ_IN = ("in_z", "in_x", "in_B", "in_C", "in_dt")
+PROJ_ROWS = (1, 3, 8, 16)
+# K6 against the fp32 product: max |d| over the product's max |value| (the
+# sums run in another order than cuBLAS's)
+PROJ_RTOL = 1e-5
 
 
 def log(*a):
@@ -706,6 +723,125 @@ def time_ssd_mixer(torch, cfg, inner, outer):
     return out
 
 
+# ------------------------------------------------------------ K6
+def proj_inputs(torch, cfg, rows, seed, layers=1):
+    """``layers`` mamba2 blocks' six projection weights of ``cfg`` on the
+    card (a dict a block), the block input x (1, rows, d_model) and a
+    mixer output g (1, rows, ssm_inner)."""
+    from repro_torch.models import ssm as SSM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ws = []
+    for _ in range(layers):
+        p = SSM.init_mamba(cfg, gen, torch.float32, "cuda")
+        ws.append({k: p[k] for k in PROJ_IN + ("out_proj",)})
+    x = torch.randn((1, rows, cfg.d_model), generator=gen, device="cuda")
+    g = torch.randn((1, rows, cfg.ssm_inner), generator=gen, device="cuda")
+    return ws, x, g
+
+
+def proj_calls(torch, cfg, rows, seed, layers=1):
+    """{entry: (kernel call, the plain products, one cuBLAS product)} of
+    K6's two entry points at ``rows`` rows: the five input projections
+    and out_proj; the library call of the five is one product against
+    their weights side by side (made here).  Each call takes the next of
+    ``layers`` blocks' weights: at a mamba2-130m's 24 (360 MB), a call
+    finds its weights out of the card's 50 MB L2, as a served task's
+    next layer does, while x and g, just written, lie in it."""
+    from repro_torch.kernels import ssd_proj as PROJ
+    ws, x, g = proj_inputs(torch, cfg, rows, seed, layers)
+    ins = [tuple(w[k] for k in PROJ_IN) for w in ws]
+    cats = [torch.cat(i, dim=1) for i in ins]
+    outs = [w["out_proj"] for w in ws]
+    turn = itertools.count()
+
+    def nxt():
+        return next(turn) % layers
+
+    return {
+        "ssd_in_proj": (lambda: PROJ.ssd_in_proj(x, *ins[nxt()]),
+                        lambda: tuple(x @ t for t in ins[nxt()]),
+                        lambda: torch.matmul(x, cats[nxt()])),
+        "ssd_out_proj": (lambda: PROJ.ssd_out_proj(g, outs[nxt()]),
+                         lambda: g @ outs[nxt()],
+                         lambda: torch.matmul(g, outs[nxt()])),
+    }, (x, g, ws)
+
+
+def check_ssd_proj(torch, cfg):
+    """K6 against the fp32 products (TF32 off) at each of PROJ_ROWS rows:
+    within PROJ_RTOL, one launch a call, the same bits at a second call.
+    Returns the largest max |d| over max |value|."""
+    from repro_torch.kernels import _build as KB
+    from repro_torch.kernels import ssd_proj as PROJ
+    worst = 0.0
+    for rows in PROJ_ROWS:
+        calls, _ = proj_calls(torch, cfg, rows, seed=rows)
+        for name, (kern, plain, _) in calls.items():
+            with torch.no_grad():
+                KB.LAUNCHES.clear()
+                got = kern()
+                torch.cuda.synchronize()
+                launches = dict(KB.LAUNCHES)
+                again = kern()
+                want = plain()
+            got, again = (t if isinstance(t, tuple) else (t,)
+                          for t in (got, again))
+            want = want if isinstance(want, tuple) else (want,)
+            assert launches == {name: 1}, launches
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, a), f"{name} repeats no bits"
+                rel = max_err(g, w) / float(w.abs().max())
+                assert rel <= PROJ_RTOL, \
+                    f"{name} rows {rows}: max err over max {rel:.3g}"
+                worst = max(worst, rel)
+    log(f"  ssd_in_proj / ssd_out_proj at rows {PROJ_ROWS}: "
+        f"max err over max {worst:.3g} (at most {PROJ_RTOL})")
+    return worst
+
+
+def proj_work(cfg, name, rows):
+    """(bytes moved, fp32 operations) of one K6 call at mamba2 ``cfg``'s
+    widths: the weights, x and the outputs each once; two operations a
+    multiply-add."""
+    d, di, N, H = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    K, n = (d, 2 * di + 2 * N + H) if name == "ssd_in_proj" else (di, d)
+    return 4 * (K * n + rows * K + rows * n), 2 * rows * K * n
+
+
+def time_ssd_proj(torch, cfg, rows, outer):
+    """K6's entry points at ``rows`` rows: device ms a call
+    (``device_ms``, four calls on each of ``cfg``'s layers' weights a
+    graph, so that each call reads its weights from device memory) beside
+    ``proj_work``'s bound, the plain products' ms (five for the input
+    projections) and one cuBLAS product's (``library_ms``; the port never
+    calls it)."""
+    layers = cfg.num_layers
+    inner = 4 * layers
+    calls, _ = proj_calls(torch, cfg, rows, seed=rows, layers=layers)
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        nbytes, ops = proj_work(cfg, name, rows)
+        with torch.no_grad():
+            r = {"ms": device_ms(torch, kern, inner, outer),
+                 "plain_ms": device_ms(torch, plain, inner, outer),
+                 "library_ms": device_ms(torch, lib, inner, outer)}
+        r["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                            ops / FP32_OPS_PER_S) * 1e3
+        r["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / FP32_OPS_PER_S else "operations")
+        r["shape"] = [rows, *((cfg.d_model, 2 * cfg.ssm_inner
+                                + 2 * cfg.ssm_state + cfg.ssm_heads)
+                               if name == "ssd_in_proj" else
+                               (cfg.ssm_inner, cfg.d_model))]
+        out[name] = r
+        log(f"  {name} {r['shape']}: kernel "
+            f"{r['ms'] * 1e3:7.2f} us  plain {r['plain_ms'] * 1e3:7.2f} us  "
+            f"cuBLAS {r['library_ms'] * 1e3:7.2f} us  bound "
+            f"{r['bound_ms'] * 1e3:6.3f} us ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound)")
+    return out
+
+
 def check_mixer_paths(paths, launches, what):
     """Every ``mamba_forward`` call that ``paths`` (``ssm.PATHS``) counted
     took the fused mixer; with ``launches``, as many launches of each
@@ -720,6 +856,20 @@ def check_mixer_paths(paths, launches, what):
             assert launches.get(name, 0) == paths["fused"], \
                 f"{what}: {launches.get(name, 0)} {name} launches for " \
                 f"{paths['fused']} fused mixer calls"
+
+
+def check_proj_paths(paths, launches, what):
+    """Every ``mamba_forward`` call that ``paths`` (``ssm.PROJ_PATHS``)
+    counted as "fused" launched each projection kernel once, and serve's
+    8-token tasks made some."""
+    paths = {k: v for k, v in paths.items() if v}
+    log(f"{what}: mamba_forward projection paths {paths}")
+    assert paths.get("fused", 0) > 0, \
+        f"{what}: no mamba2 projection ran on the projection kernels"
+    for name in ("ssd_in_proj", "ssd_out_proj"):
+        assert launches.get(name, 0) == paths["fused"], \
+            f"{what}: {launches.get(name, 0)} {name} launches for " \
+            f"{paths['fused']} fused projection calls"
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -2124,8 +2274,9 @@ def main() -> int:
     t0 = time.time()
     errs = check_kernels(torch, K)
     ssd_err = check_ssd_mixer(torch, get_config("mamba2-130m"))
+    proj_err = check_ssd_proj(torch, get_config("mamba2-130m"))
     log(f"all kernels agree ({time.time() - t0:.1f}s); max abs err {errs}, "
-        f"ssd_mixer {ssd_err:.3g}")
+        f"ssd_mixer {ssd_err:.3g}, ssd_proj (over max) {proj_err:.3g}")
 
     log("== phase 3: timing (device time per call)")
     t_serve = time_kernels(torch, K, SERVE_SHAPE, inner=200, outer=20)
@@ -2139,6 +2290,7 @@ def main() -> int:
                                 bits=4) for D in (768, 4096)}
     t_ssd = time_ssd_mixer(torch, get_config("mamba2-130m"), inner=200,
                            outer=20)
+    t_proj = time_ssd_proj(torch, get_config("mamba2-130m"), 8, outer=20)
     # the kernels K1 / K3 / K4 launch per call at serve's shape: one each
     x = torch.randn(SERVE_SHAPE[:3], device="cuda")
     c = torch.randn((SERVE_SHAPE[3], SERVE_SHAPE[2]), device="cuda")
@@ -2189,10 +2341,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         params = init_params(torch, M, cfg)
         SSM.PATHS.clear()
+        SSM.PROJ_PATHS.clear()
         lw, wall = serve_check(torch, name, params)
         add_launches(lw)
         if name == "mamba2-130m":
             check_mixer_paths(SSM.PATHS, lw, "serve")
+            check_proj_paths(SSM.PROJ_PATHS, lw, "serve")
         SSM.PATHS.clear()
         lr, res, drift = runtime_check(torch, cfg, params,
                                        SPLIT_BOUND_SCALED)
@@ -2366,6 +2520,12 @@ def main() -> int:
         "bound_by": t_ssd[8]["bound_by"], "library_ms": None,
         "shape": t_ssd[8]["shape"], "s128": t_ssd[128],
     })
+    for name in ("ssd_in_proj", "ssd_out_proj"):
+        assert launches.get(name, 0) > 0, f"{name} never launched"
+        kernels.append(dict(
+            t_proj[name], name=name, route="cuda", source=PROJ_SOURCE,
+            replaces=f"no pallas_call: XLA runs {PROJ_PLAIN}'s dots",
+            launches=int(launches[name]), max_rel_err=proj_err))
     log(json.dumps({"phases": results}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("coach_kernels.cu", "uaq_quantize.cu", "semantic_probe.cu",
            "row_pass_f32.cu", "row_pass_bf16.cu", "row_pass_f16.cu",
            "row_pass_f32_scalar.cu", "row_pass_bf16_scalar.cu",
-           "row_pass_f16_scalar.cu", "ssd_mixer.cu")
+           "row_pass_f16_scalar.cu", "ssd_mixer.cu", "ssd_proj.cu")
 HEADERS = ("common.cuh", "row_pass.cuh")
 # never --use_fast_math: the wire fields must match the plain version
 # bit for bit (IEEE division and rounding)
@@ -43,8 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: argument types, in order (see csrc/coach_kernels.cu and
-# csrc/ssd_mixer.cu)
+# C entry points: argument types, in order (see csrc/coach_kernels.cu,
+# csrc/ssd_mixer.cu and csrc/ssd_proj.cu)
 _SIGNATURES = {
     "coach_fused_boundary": [_P] * 11 + [_I] * 8 + [_P],
     "coach_uaq_quantize": [_P] * 4 + [_I] * 5 + [_P],
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "coach_uaq_dequantize": [_P] * 4 + [_I] * 5 + [_P],
     "coach_capture_id": [_P, _P],
     "coach_ssd_mixer": [_P] * 25 + [_I] * 7 + [ctypes.c_float, _P],
+    "coach_ssd_proj": [_P] * 4 + [_I] * 3 + [_P],
 }
 # element types the kernels read (activations) and write (dequantized
 # values), by the code the entry points take (enum DType in the source)

@@ -19,6 +19,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build as KB
 from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import ssd_proj as PROJ
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import column, pad_seq, residual, row
 from repro_torch.models.shardctx import (constrain, grad_in_layout,
@@ -31,6 +32,12 @@ SSM_GROUPS = 1  # n_groups for the B/C projections
 # ``mixer_plain``; the reasons are ``plain_reason``'s).  Inside a jitted
 # function it counts at capture.
 PATHS: collections.Counter = collections.Counter()
+# the path of each ``mamba_forward`` call's projections, one count a call:
+# "fused" (the five input projections and out_proj on the projection
+# kernels, ``kernels/ssd_proj.py``) or "plain.<reason>" (``layers.column``
+# and ``@``; the reasons are ``proj_plain_reason``'s)
+PROJ_PATHS: collections.Counter = collections.Counter()
+IN_PROJ = ("in_z", "in_x", "in_B", "in_C", "in_dt")
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -239,6 +246,37 @@ def plain_reason(params, acts, cfg: ModelConfig,
     return None
 
 
+def proj_plain_reason(params, x) -> Optional[str]:
+    """None where the projection kernels take a ``mamba_forward`` call on
+    x (B,S,D), else why ``layers.column`` and ``@`` run its projections:
+    "dtensor" (a sharded step), "cpu" (a tensor off the card), "grad"
+    (grad mode and a tensor that requires grad), "dtype" (x or a weight
+    not float32), "rows" (B*S over ``kernels.ssd_proj.MAX_ROWS``: more
+    rows make the product compute-bound, which streaming weights does not
+    serve) or "shape" (widths or a weight's layout the kernels do not
+    take)."""
+    ws = [params[k] for k in IN_PROJ + ("out_proj",)]
+    every = [x] + ws
+    if any(isinstance(t, DTensor) for t in every):
+        return "dtensor"
+    if not all(_on_card(t) for t in every):
+        return "cpu"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in every):
+        return "grad"
+    if any(t.dtype != torch.float32 for t in every):
+        return "dtype"
+    rows = math.prod(x.shape[:-1])
+    if not 1 <= rows <= PROJ.MAX_ROWS:
+        return "rows"
+    out_w = ws.pop()
+    if not (PROJ.takes(rows, x.shape[-1], [w.shape[1] for w in ws])
+            and PROJ.takes(rows, out_w.shape[0], [out_w.shape[1]])
+            and all(w.is_contiguous() and PROJ.aligned(w)
+                    for w in ws + [out_w])):
+        return "shape"
+    return None
+
+
 def _as_taken(params, acts, h0):
     """The fused mixer's inputs as the kernels take them: contiguous, in
     xr's type, with A_log, D and dt_bias in float32 (the tensors
@@ -282,18 +320,27 @@ def mixer_plain(params, z, xr, Br, Cr, dt, cfg: ModelConfig, h0=None):
 
 def mamba_forward(params, x, cfg: ModelConfig, h0=None,
                   return_cache: bool = False):
-    """Full-sequence mamba2 block.  x: (B,S,D).  Between the projections
-    and ``out_proj`` the fused SSD mixer kernels run where they take the
-    call (``plain_reason``), the plain chain ``mixer_plain`` elsewhere."""
-    # z's gradient comes out of the gated norm as a partial sum over the
-    # model axis (its variance reduces over the sharded inner dim): reduced
-    # to z's layout before the product's backward takes it, as for
-    # ``layers.residual``
-    z = grad_in_layout(constrain(column(x, params["in_z"]), "ssm_inner"))
-    xr = constrain(column(x, params["in_x"]), "ssm_inner")
-    Br = column(x, params["in_B"])
-    Cr = column(x, params["in_C"])
-    dt = grad_in_layout(column(x, params["in_dt"]))
+    """Full-sequence mamba2 block.  x: (B,S,D).  The projections run on
+    the projection kernels where they take the call
+    (``proj_plain_reason``), as ``layers.column`` and ``@`` elsewhere;
+    between them the fused SSD mixer kernels run where they take the call
+    (``plain_reason``), the plain chain ``mixer_plain`` elsewhere."""
+    proj = proj_plain_reason(params, x)
+    PROJ_PATHS["fused" if proj is None else f"plain.{proj}"] += 1
+    if proj is None:
+        z, xr, Br, Cr, dt = PROJ.ssd_in_proj(
+            x.contiguous(), *(params[k] for k in IN_PROJ))
+    else:
+        # z's gradient comes out of the gated norm as a partial sum over
+        # the model axis (its variance reduces over the sharded inner
+        # dim): reduced to z's layout before the product's backward takes
+        # it, as for ``layers.residual``
+        z = grad_in_layout(constrain(column(x, params["in_z"]),
+                                     "ssm_inner"))
+        xr = constrain(column(x, params["in_x"]), "ssm_inner")
+        Br = column(x, params["in_B"])
+        Cr = column(x, params["in_C"])
+        dt = grad_in_layout(column(x, params["in_dt"]))
     why = plain_reason(params, (z, xr, Br, Cr, dt), cfg, h0)
     PATHS["fused" if why is None else f"plain.{why}"] += 1
     if why is None:
@@ -303,7 +350,8 @@ def mamba_forward(params, x, cfg: ModelConfig, h0=None,
                               want_state=return_cache)
     else:
         g, hT = mixer_plain(params, z, xr, Br, Cr, dt, cfg, h0)
-    out = residual(g @ row(params["out_proj"]))
+    out = residual(PROJ.ssd_out_proj(g.contiguous(), params["out_proj"])
+                   if proj is None else g @ row(params["out_proj"]))
     if return_cache:
         K = cfg.ssm_conv
         conv_cache = {

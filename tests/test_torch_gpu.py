@@ -27,6 +27,7 @@ from repro_torch.kernels import _build as KB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.boundary import fused_boundary  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
+from repro_torch.kernels import ssd_proj as PROJ  # noqa: E402
 from repro_torch.kernels.semantic_cache import semantic_probe  # noqa: E402
 from repro_torch.kernels.uaq import uaq_dequantize, uaq_quantize  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -1516,3 +1517,163 @@ def test_jitted_segments_with_the_fused_mixer_are_bit_equal(cuda):
     paths.subtract(before)
     assert paths["fused"] >= cfg.num_layers and not any(
         v for k, v in paths.items() if k.startswith("plain"))
+
+
+# ------------------------------------------------ K6: the projections
+def _proj_weights(cfg, device, seed=0):
+    """A mamba2 block's six projection weights (fp32) on ``device``."""
+    p = SSM.init_mamba(cfg, torch.Generator().manual_seed(seed),
+                       torch.float32, "cpu")
+    return {k: p[k].to(device) for k in SSM.IN_PROJ + ("out_proj",)}
+
+
+def _rel(got, want):
+    return _max_err(got, want) / float(want.float().abs().max())
+
+
+def _proj_paths_during(fn):
+    """The ``ssm.PROJ_PATHS`` counts that ``fn()`` adds, and its result."""
+    before = SSM.PROJ_PATHS.copy()
+    out = fn()
+    paths = SSM.PROJ_PATHS.copy()
+    paths.subtract(before)
+    return {k: v for k, v in paths.items() if v}, out
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 16])
+def test_ssd_proj_matches_the_fp32_product(cuda, rows):
+    """Both entry points against ``x @ w`` in fp32 (TF32 off, precision
+    "highest") at mamba2-130m's widths: the five input projections (768
+    -> 1536, 1536, 128, 128 and in_dt's ragged 24) in one launch and
+    out_proj (1536 -> 768) in another (tiles of 16 and of 8 columns, each
+    at 4, 8 and 16 rows of x padded); max |d| over max |ref| within 1e-5
+    (the same fp32 FMAs, summed in another order)."""
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = get_config("mamba2-130m")
+    w = _proj_weights(cfg, cuda)
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn((1, rows, cfg.d_model), generator=gen).to(cuda)
+    g = torch.randn((1, rows, cfg.ssm_inner), generator=gen).to(cuda)
+    KB.LAUNCHES.clear()
+    with torch.no_grad():
+        outs = PROJ.ssd_in_proj(x, *(w[k] for k in SSM.IN_PROJ))
+        y = PROJ.ssd_out_proj(g, w["out_proj"])
+        torch.cuda.synchronize()
+        assert dict(KB.LAUNCHES) == {"ssd_in_proj": 1, "ssd_out_proj": 1}
+        for k, got in list(zip(SSM.IN_PROJ, outs)) + [("out_proj", y)]:
+            want = (g if k == "out_proj" else x) @ w[k]
+            assert got.shape == want.shape and got.dtype == torch.float32
+            assert got.is_contiguous()
+            assert _rel(got, want) <= 1e-5, k
+
+
+def test_ssd_proj_replays_bit_equal_in_a_graph(cuda):
+    """Captured in a CUDA graph, both entry points give the eager launch's
+    bits at each of two replays (the contraction is summed in a fixed
+    order, no atomics), and count their launches at capture only."""
+    cfg = get_config("mamba2-130m")
+    w = _proj_weights(cfg, cuda)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 8, cfg.d_model), generator=gen).to(cuda)
+    g = torch.randn((1, 8, cfg.ssm_inner), generator=gen).to(cuda)
+
+    def call():
+        return PROJ.ssd_in_proj(x, *(w[k] for k in SSM.IN_PROJ)) + (
+            PROJ.ssd_out_proj(g, w["out_proj"]),)
+
+    with torch.no_grad():
+        want = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        KB.LAUNCHES.clear()
+        with torch.cuda.graph(graph):
+            out = call()
+        assert dict(KB.LAUNCHES) == {"ssd_in_proj": 1, "ssd_out_proj": 1}
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, v) for o, v in zip(out, want))
+        assert sum(KB.LAUNCHES.values()) == 2
+
+
+def test_mamba_forward_on_the_projection_kernels_matches_the_plain_one(
+        cuda, monkeypatch):
+    """A mamba2-130m block at S = 8 on the card: its projections on the
+    kernels (``PROJ_PATHS`` "fused", one launch of each entry point beside
+    the mixer's three) against the same block on the plain products (the
+    kernels' row limit set to 0: "plain.rows"), within 1e-5 of the
+    largest value."""
+    cfg = _ssd_cfg()
+    p = _ssd_block(cfg, torch.float32, cuda)
+    x = torch.randn((1, 8, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(6)).to(cuda)
+    with torch.no_grad():
+        KB.LAUNCHES.clear()
+        paths, got = _proj_paths_during(lambda: SSM.mamba_forward(p, x, cfg))
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        monkeypatch.setattr(PROJ, "MAX_ROWS", 0)
+        KB.LAUNCHES.clear()
+        plain, want = _proj_paths_during(
+            lambda: SSM.mamba_forward(p, x, cfg))
+        torch.cuda.synchronize()
+        plain_launches = dict(KB.LAUNCHES)
+    assert paths == {"fused": 1} and plain == {"plain.rows": 1}
+    mixer = {"ssd_prep": 1, "ssd_chunk": 1, "gated_rmsnorm": 1}
+    assert launches == dict(mixer, ssd_in_proj=1, ssd_out_proj=1)
+    assert plain_launches == mixer
+    assert got.shape == want.shape and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("B,S,path", [(1, 16, "fused"), (2, 8, "fused"),
+                                      (1, 17, "plain.rows"),
+                                      (3, 6, "plain.rows")])
+def test_projection_rows_decide_the_path(cuda, B, S, path):
+    """Up to 16 rows (B * S) the projections take the kernels; a 17-row
+    call, or 18 rows over 3 batch rows, counts "plain.rows" and launches
+    neither entry point."""
+    cfg = _ssd_cfg()
+    p = _ssd_block(cfg, torch.float32, cuda)
+    x = torch.randn((B, S, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(7)).to(cuda)
+    with torch.no_grad():
+        KB.LAUNCHES.clear()
+        paths, out = _proj_paths_during(lambda: SSM.mamba_forward(p, x, cfg))
+        torch.cuda.synchronize()
+    assert paths == {path: 1} and out.shape == x.shape
+    n = int(path == "fused")
+    assert (KB.LAUNCHES["ssd_in_proj"], KB.LAUNCHES["ssd_out_proj"]) == (n, n)
+
+
+@pytest.mark.parametrize("case", ["rows", "dtype", "width", "unaligned",
+                                  "weight_rows", "weight_on_cpu",
+                                  "not_contiguous"])
+def test_ssd_proj_wrapper_raises(cuda, case):
+    """The wrapper refuses what the kernel does not take: 17 rows, another
+    type, a width that is no multiple of 4, a weight off 16 bytes, a
+    weight whose rows are not x's columns, a weight off the card or a
+    strided weight."""
+    cfg = get_config("mamba2-130m")
+    w = _proj_weights(cfg, cuda)["out_proj"]
+    g = torch.randn((1, 8, cfg.ssm_inner), device=cuda)
+    err = ValueError
+    if case == "rows":
+        g = torch.randn((1, 17, cfg.ssm_inner), device=cuda)
+    elif case == "dtype":
+        w, err = w.double(), TypeError
+    elif case == "width":
+        w = w[:, :-2].contiguous()
+    elif case == "unaligned":
+        w = torch.empty(w.numel() + 1, device=cuda)[1:].view(w.shape)
+    elif case == "weight_rows":
+        w = w[:-4].contiguous()
+    elif case == "weight_on_cpu":
+        w = w.cpu()
+    else:
+        w = torch.stack([w, w], -1)[..., 0]
+    with torch.no_grad(), pytest.raises(err):
+        PROJ.ssd_out_proj(g, w)

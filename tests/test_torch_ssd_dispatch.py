@@ -1,9 +1,12 @@
 """Which path ``models.ssm.mamba_forward`` takes between its projections
 and ``out_proj``: the fused SSD mixer kernels (``kernels/ssd.py``, on the
 card) or the plain chain, and the reason ``PATHS`` names for the plain
-one.  The kernels themselves run only on the card
-(``tests/test_torch_gpu.py``); here the dispatch is held on CPU tensors,
-with the device test patched where a case needs to get past it.
+one; and which path its projections take: the projection kernels
+(``kernels/ssd_proj.py``, on the card) or ``layers.column`` and ``@``,
+and the reason ``PROJ_PATHS`` names for the plain one.  The kernels
+themselves run only on the card (``tests/test_torch_gpu.py``); here the
+dispatch is held on CPU tensors, with the device test patched where a
+case needs to get past it.
 """
 
 import json
@@ -17,7 +20,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
+from repro_torch.kernels import ssd_proj as PROJ  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.models.layers import column, residual, row  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
@@ -38,12 +43,16 @@ def _block(cfg, dtype=torch.float32, seed=0):
     return params, x
 
 
-def _paths_of(fn):
-    before = SSM.PATHS.copy()
+def _paths_of(fn, paths=SSM.PATHS):
+    before = paths.copy()
     out = fn()
-    after = SSM.PATHS.copy()
+    after = paths.copy()
     after.subtract(before)
     return {k: v for k, v in after.items() if v}, out
+
+
+def _proj_paths_of(fn):
+    return _paths_of(fn, SSM.PROJ_PATHS)
 
 
 @pytest.fixture
@@ -202,22 +211,36 @@ with torch.no_grad():
     want = SSM.mamba_forward(params, x, cfg)
     got = SSM.mamba_forward(dparams, distribute_tensor(x, mesh, rep), cfg)
 print(json.dumps({"paths": dict(SSM.PATHS),
+                  "proj_paths": dict(SSM.PROJ_PATHS),
                   "equal": bool(torch.allclose(got.full_tensor(), want,
                                                rtol=1e-6, atol=1e-6))}))
 """
 
 
-def test_dtensor_forward_takes_the_plain_chain():
-    """On a one-rank gloo group (in a subprocess, so that no process group
-    leaks into this one), a forward on replicated DTensors is plain with
-    the reason "dtensor", and equals the forward on plain tensors."""
+@pytest.fixture(scope="module")
+def dtensor_forward():
+    """The script's result: a forward on plain tensors, then one on
+    replicated DTensors on a one-rank gloo group (in a subprocess, so that
+    no process group leaks into this one)."""
     r = subprocess.run([sys.executable, "-c", _DTENSOR_SCRIPT],
                        env=dict(os.environ, PYTHONPATH=SRC),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["paths"] == {"plain.cpu": 1, "plain.dtensor": 1}
-    assert out["equal"]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_dtensor_forward_takes_the_plain_chain(dtensor_forward):
+    """A forward on replicated DTensors is plain with the reason
+    "dtensor", and equals the forward on plain tensors."""
+    assert dtensor_forward["paths"] == {"plain.cpu": 1, "plain.dtensor": 1}
+    assert dtensor_forward["equal"]
+
+
+def test_dtensor_forward_takes_the_plain_projections(dtensor_forward):
+    """The same forward's projections are plain with the reason
+    "dtensor"."""
+    assert dtensor_forward["proj_paths"] == {"plain.cpu": 1,
+                                             "plain.dtensor": 1}
 
 
 def test_the_kernel_modules_import_without_nvcc(tmp_path):
@@ -241,3 +264,144 @@ def test_the_kernel_modules_import_without_nvcc(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "{'plain.cpu': 1}"
+
+
+# ------------------------------------------- the projections' dispatch
+@pytest.mark.parametrize("full", [False, True])
+def test_cpu_projections_are_plain(full):
+    cfg = _cfg(full)
+    params, x = _block(cfg)
+    assert SSM.proj_plain_reason(params, x) == "cpu"
+    paths, y = _proj_paths_of(lambda: SSM.mamba_forward(params, x, cfg))
+    assert paths == {"plain.cpu": 1} and y.shape == x.shape
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("return_cache", [False, True])
+def test_plain_projections_are_the_column_products(full, return_cache,
+                                                   monkeypatch):
+    """On the CPU the projections are ``layers.column`` products, the same
+    bits as before the projection kernels: the mixer's inputs are
+    ``column(x, w)`` for the five input weights, and the block's output is
+    ``residual(g @ row(out_proj))`` of the mixer's output g."""
+    cfg = _cfg(full)
+    params, x = _block(cfg, seed=3)
+    seen = {}
+    plain = SSM.mixer_plain
+
+    def spy(p, *acts, **kw):
+        seen["acts"] = acts[:5]
+        seen["g"], hT = plain(p, *acts, **kw)
+        return seen["g"], hT
+
+    monkeypatch.setattr(SSM, "mixer_plain", spy)
+    out = SSM.mamba_forward(params, x, cfg, return_cache=return_cache)
+    y = out[0] if return_cache else out
+    for k, got in zip(SSM.IN_PROJ, seen["acts"]):
+        assert torch.equal(got, column(x, params[k])), k
+    assert torch.equal(y, residual(seen["g"] @ row(params["out_proj"])))
+
+
+def test_projections_with_grad_are_plain(on_card):
+    cfg = _cfg(full=True)
+    params, x = _block(cfg)
+    assert SSM.proj_plain_reason(params, x) is None
+    params["in_dt"].requires_grad_(True)
+    assert SSM.proj_plain_reason(params, x) == "grad"
+    x.requires_grad_(True)
+    params["in_dt"].requires_grad_(False)
+    assert SSM.proj_plain_reason(params, x) == "grad"
+    with torch.no_grad():
+        assert SSM.proj_plain_reason(params, x) is None
+
+
+@pytest.mark.parametrize("case", ["float64", "bf16_weight", "bf16_x"])
+def test_projections_off_fp32_are_plain(on_card, case):
+    """Activations or any weight in another type than float32: the kernels
+    compute in fp32 from fp32 operands only."""
+    cfg = _cfg(full=True)
+    params, x = _block(cfg, torch.float64 if case == "float64"
+                       else torch.float32)
+    if case == "bf16_weight":
+        params["out_proj"] = params["out_proj"].to(torch.bfloat16)
+    elif case == "bf16_x":
+        x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        assert SSM.proj_plain_reason(params, x) == "dtype"
+    if case == "float64":
+        with torch.no_grad():
+            paths, _ = _proj_paths_of(lambda: SSM.mamba_forward(params, x,
+                                                                cfg))
+        assert paths == {"plain.dtype": 1}
+
+
+@pytest.mark.parametrize("B,S,why", [(1, 1, None), (1, 8, None),
+                                     (1, 16, None), (2, 8, None),
+                                     (1, 17, "rows"), (3, 6, "rows"),
+                                     (1, 128, "rows"), (1, 0, "rows")])
+def test_projection_rows(on_card, B, S, why):
+    """Up to ``MAX_ROWS`` rows (B * S) the kernels take the call; above,
+    where the product is bound by its FMAs and not by its weights' bytes,
+    the plain products run it."""
+    cfg = _cfg(full=True)
+    params, _ = _block(cfg)
+    x = torch.randn((B, S, cfg.d_model))
+    assert SSM.proj_plain_reason(params, x) == why
+
+
+@pytest.mark.parametrize("case", ["width", "strided", "unaligned"])
+def test_projection_weights_the_kernels_do_not_take_are_plain(on_card,
+                                                              case):
+    """A width that is no multiple of 4, a strided weight or one off 16
+    bytes: "shape", never a copy of the weight."""
+    cfg = _cfg(full=True)
+    params, x = _block(cfg)
+    w = params["in_dt"]
+    if case == "width":
+        params["in_dt"] = w[:, :-1].contiguous()
+    elif case == "strided":
+        params["in_dt"] = torch.stack([w, w], -1)[..., 0]
+    else:
+        params["in_dt"] = torch.empty(w.numel() + 1)[1:].view(w.shape)
+    with torch.no_grad():
+        assert SSM.proj_plain_reason(params, x) == "shape"
+
+
+def test_projections_on_the_card_path_run_the_column_products(
+        on_card, monkeypatch):
+    """With the device test passed, a block whose mixer the kernels do not
+    take (head dim 32) runs its projections through the wrappers, which
+    on CPU tensors compute the plain products: the same bits as the plain
+    path, counted "fused"."""
+    cfg = _cfg()
+    params, x = _block(cfg)
+    with torch.no_grad():
+        paths, got = _proj_paths_of(lambda: SSM.mamba_forward(params, x,
+                                                              cfg))
+    assert paths == {"fused": 1}
+    monkeypatch.setattr(SSM, "_on_card", lambda t: False)
+    with torch.no_grad():
+        plain, want = _proj_paths_of(lambda: SSM.mamba_forward(params, x,
+                                                               cfg))
+    assert plain == {"plain.cpu": 1} and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,width_in,widths,takes", [
+    (8, 768, (1536, 1536, 128, 128, 24), True), (16, 1536, (768,), True),
+    (1, 4, (4,), True), (17, 768, (1536,), False), (0, 768, (1536,), False),
+    (8, 770, (1536,), False), (8, 768, (1538,), False),
+    (8, 768, (), False), (8, 768, (4,) * 6, False),
+    (8, PROJ.MAX_IN, (4,), True), (8, PROJ.MAX_IN + 4, (4,), False)])
+def test_proj_takes(rows, width_in, widths, takes):
+    assert PROJ.takes(rows, width_in, widths) is takes
+
+
+def test_the_projection_wrappers_compute_the_products_on_the_cpu():
+    cfg = _cfg(full=True)
+    params, x = _block(cfg)
+    outs = PROJ.ssd_in_proj(x, *(params[k] for k in SSM.IN_PROJ))
+    for k, got in zip(SSM.IN_PROJ, outs):
+        assert torch.equal(got, x @ params[k]), k
+    g = torch.randn((1, 8, cfg.ssm_inner))
+    assert torch.equal(PROJ.ssd_out_proj(g, params["out_proj"]),
+                       g @ params["out_proj"])
